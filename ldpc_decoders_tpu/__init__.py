@@ -1,9 +1,9 @@
-"""ldpc_decoders_tpu — a TPU-native LDPC decoding and Monte-Carlo channel
-simulation framework (JAX / XLA / Pallas / pjit).
+"""ldpc_decoders_tpu — a batched LDPC decoding and Monte-Carlo channel
+simulation framework on JAX / XLA.
 
 Capability-equivalent to the reference research codebase
 ``thadikari/ldpc_decoders`` (numpy/scipy, one codeword at a time on CPU),
-re-designed TPU-first:
+re-designed for an accelerator:
 
 - parity-check matrices compile to static edge-index gather tables
   (:mod:`ldpc_decoders_tpu.ops.graph`), so belief propagation runs as batched
@@ -11,8 +11,8 @@ re-designed TPU-first:
 - channel sampling, LLR initialisation, syndrome checks and early termination
   all run in-graph under ``jit`` with explicit ``jax.random`` keys;
 - the ADMM decoder's parity-polytope Euclidean projection is a batched
-  fixed-degree kernel (:mod:`ldpc_decoders_tpu.ops.projection`);
-- multi-chip scaling uses a ``jax.sharding.Mesh`` with codeword batches
+  fixed-degree op (:mod:`ldpc_decoders_tpu.ops.projection`);
+- multi-device scaling uses a ``jax.sharding.Mesh`` with codeword batches
   sharded over devices and error tallies combined with ``psum``
   (:mod:`ldpc_decoders_tpu.parallel`).
 
@@ -20,36 +20,34 @@ Reference parity map (file:line cites point into the reference repo):
 see SURVEY.md at the repository root.
 """
 
+import os
+
 __version__ = "0.1.0"
+
+# Persistent compile cache when JAX_COMPILATION_CACHE_DIR is unset: one
+# fixed directory inside the checkout (a moving path never hits, and the
+# program writes nothing outside its checkout). Listed in .gitignore.
+CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".jax_cache")
 
 
 def _enable_persistent_compile_cache() -> None:
-    """Point jax at an on-disk compilation cache (measured: a fresh
-    process re-running the benched fused-MSA program drops 24 s -> 10 s
-    end-to-end; every campaign/CLI/bench process otherwise re-pays its
-    ~15-150 s of TPU compiles). Respects an explicit user setting
-    (``JAX_COMPILATION_CACHE_DIR`` env or prior ``jax.config`` update);
-    opt out entirely with ``LDPC_TPU_XLA_CACHE=""``. The cache location
-    defaults to ``~/.cache/ldpc_decoders_tpu/xla`` and jax's writer is
-    concurrency-safe (atomic temp + rename), so parallel campaign
-    processes can share it."""
-    import os
+    """Point JAX at :data:`CACHE_DIR` unless the environment or an
+    earlier ``jax.config`` update already chose a directory. JAX's
+    writer is concurrency-safe (atomic temp + rename), so processes
+    can share it."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    import jax
 
-    loc = os.environ.get("LDPC_TPU_XLA_CACHE")
-    if loc == "" or os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    if jax.config.jax_compilation_cache_dir:
         return
     try:
-        import jax
-
-        if jax.config.jax_compilation_cache_dir:
-            return
-        path = loc or os.path.join(
-            os.path.expanduser("~"), ".cache", "ldpc_decoders_tpu", "xla")
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+        os.makedirs(CACHE_DIR, exist_ok=True)
+    except OSError:     # read-only checkout: run without a cache
+        return
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 _enable_persistent_compile_cache()

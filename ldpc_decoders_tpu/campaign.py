@@ -3,7 +3,7 @@
 native case registry.
 
 The reference prints `main.py` argv lines and `eval`s them with `&` for
-parallelism across processes/Slurm jobs. On TPU the parallelism lives
+parallelism across processes/Slurm jobs. Here the parallelism lives
 *inside* each run (batched codewords sharded over the mesh), so a
 campaign is simply an ordered list of RunConfigs executed in-process.
 ``--emit`` prints the equivalent CLI lines instead of running, preserving
@@ -152,11 +152,10 @@ def run_campaign(case_names, data_dir=None, mesh=None, overrides=None,
             mi = ENSEMBLE_MAX_ITER.get(name)
             for cfg in (def_cases(name, mi) if mi else def_cases(name)):
                 # G=10 members decode at once: per-member batch 2048 keeps
-                # the stacked tables + message buffers inside one chip's
-                # HBM (override with --batch). biAWGN sweeps run bfloat16
-                # messages (statistically validated vs the golden curves,
-                # docs/SCALING.md, ~6x the f32-HIGHEST matmul rate); BSC
-                # stays float32 — its LLRs are all equal multiples of
+                # the stacked tables + message buffers inside one device's
+                # memory (override with --batch). biAWGN sweeps run
+                # bfloat16 messages (statistically validated vs the
+                # golden curves, docs/PARITY.md); BSC stays float32 — its LLRs are all equal multiples of
                 # log((1-p)/p) and that tie structure is NOT bf16-safe
                 # (the committed member goldens were regenerated in f32,
                 # scripts/regen_ens_cross.py). BEC's integer messages are
@@ -174,12 +173,9 @@ def run_campaign(case_names, data_dir=None, mesh=None, overrides=None,
             continue
         if use_ensemble and name in ENSEMBLE_MEMBERS:
             # Default ensemble route: ONE compiled chunk, members rotated
-            # through it as traced tables (runner.rotate_member). Measured
-            # on the v5e this decodes each member at full single-code rate
-            # (~100k words/s) where the G-stacked joint program ran ~620
-            # words/s aggregate — one compile either way, ~100x the
-            # decode throughput (docs/SCALING.md "Ensemble decode
-            # routes"); --joint-ensemble selects the stacked program.
+            # through it as traced tables (runner.rotate_member), so each
+            # member decodes at single-code rate; --joint-ensemble
+            # selects the G-stacked program instead.
             from ldpc_decoders_tpu.harness.runner import (
                 run_rotating_members,
             )
@@ -203,8 +199,8 @@ def run_campaign(case_names, data_dir=None, mesh=None, overrides=None,
             from ldpc_decoders_tpu.harness.cap_sweep import CapSweepRunner
             code, caps = CAP_SWEEP_CASES[name]
             for cfg in def_cases(code):
-                # Long mi=0 convergence chains: a smaller batch keeps each
-                # device call bounded (TPU watchdog) at equal throughput.
+                # Long mi=0 convergence chains run every chunk to its
+                # slowest word: a smaller batch keeps each chunk short.
                 cfg = dataclasses.replace(cfg, batch=2048)
                 if data_dir:
                     cfg = dataclasses.replace(cfg, data_dir=data_dir)

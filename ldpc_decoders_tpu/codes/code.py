@@ -11,7 +11,7 @@ Capability parity with reference src/codes.py:
   reference's data/codes directory;
 - ``FILE_CODES_DIR`` env var override (reference codes.py:68-70).
 
-New, TPU-specific: ``Code.graph`` lazily compiles the parity matrix into
+New here: ``Code.graph`` lazily compiles the parity matrix into
 static edge tables (:class:`ldpc_decoders_tpu.ops.graph.TannerGraph`) used
 by every batched decoder.
 """

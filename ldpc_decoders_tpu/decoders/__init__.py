@@ -1,1 +1,1 @@
-"""Batched TPU decoders: BP (SPA/MSA), erasure SPA, ML, LP, ADMM, ADMMA."""
+"""Batched decoders: BP (SPA/MSA), erasure SPA, ML, LP, ADMM, ADMMA."""

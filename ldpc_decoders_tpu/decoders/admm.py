@@ -1,6 +1,6 @@
 """Batched ADMM LP decoding (Barman/Liu-Draper decomposition).
 
-Functional TPU re-design of reference src/admm.py:9-77. The reference
+Functional batched re-design of reference src/admm.py:9-77. The reference
 iterates one codeword at a time, crossing a Python->ctypes->C++ boundary
 for every check projection every iteration (admm.py:61-62 ->
 exact.proj_csr -> projection.cpp). Here the whole batch iterates inside
@@ -32,7 +32,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 
 from ldpc_decoders_tpu.ops import perm as perm_ops
@@ -58,76 +57,28 @@ class ADMMDecoder:
 
     def __init__(self, graph: TannerGraph, mu: float = 3.0, eps: float = 1e-5,
                  max_iter: int = 10, allow_pseudo: bool = False,
-                 iter_cap: int = 2000, perm: str = "auto",
-                 presort: str = "auto", **_):
+                 iter_cap: int = 2000, perm: str = "auto", **_):
         self.graph = graph
         self.mu = float(mu)
         self.eps = float(eps)
         self.max_iter = int(max_iter)
         self.allow_pseudo = bool(allow_pseudo)
         self.iter_cap = self.max_iter if self.max_iter > 0 else int(iter_cap)
-        # Probe-and-sort (fused route, big caps): the fused kernel's
-        # early exit is BLOCK-granular (max over the block's words), and
-        # at cap-bound operating points the iteration distribution is
-        # long-tailed — margulis BSC p=0.07, cap 2000: per-word mean 589
-        # / median 108, but 5.3% of words cap out, so ~every block of 32
-        # runs the full cap (measured per-block max mean 1991,
-        # scripts/mar_admm_probe.py). A short capped probe decode
-        # (discarded) ranks words by convergence time; decoding the
-        # batch SORTED by that rank aligns block early-exit with
-        # per-word cost. Exact: trajectories are per-word deterministic
-        # in the LLRs, so outputs are bit-identical under the
-        # sort/unsort permutation. "auto" enables it on the pallas route
-        # when the effective cap is deep enough that the probe
-        # (PRESORT_PROBE_CAP iterations) is small against the tail.
-        if presort not in ("auto", "on", "off"):
-            raise ValueError(f"unknown presort mode {presort!r}")
-        self.presort = presort
         # Convergence threshold eps^2 * nnz(H) (reference admm.py:15).
         self.thresh = self.eps ** 2 * graph.n_edge
-        # Unlike BP (bf16 messages / exact one-hot sums), ADMM iterates
-        # float32 state whose trajectory is precision-sensitive: default
-        # MXU precision quantizes f32 operands toward bf16 and visibly
-        # shifts WER, and with HIGHEST precision the matmul loses its
-        # speed edge — so the gather path is the default here.
+        # ADMM iterates float32 state whose trajectory is precision-
+        # sensitive, so the matmul route runs at Precision.HIGHEST (IEEE
+        # float32 on the GPU). "auto" gathers: 1.5x (LDPC(1200,3,6), cap
+        # 50) to 2.5x (margulis, cap 200) faster than the one-hot dots on
+        # the H100 (PERF.md "Bring-up on the H100").
         if perm == "auto":
             perm = "gather"
-        if perm not in ("gather", "matmul", "pallas"):
+        if perm not in ("gather", "matmul"):
             raise ValueError(f"unknown perm mode {perm!r}")
         self.perm = perm
         if perm == "matmul":
             self._s_cv = jnp.asarray(perm_ops.var_sum_matrix(graph))
             self._b_vc = jnp.asarray(perm_ops.var_broadcast_matrix(graph))
-        if perm == "pallas":
-            # Fused whole-loop kernel (ops/pallas_bp.py): regular graphs,
-            # hard-decision output only (allow_pseudo uses the XLA path).
-            # Graphs whose dense [Dc, C, V] one-hots exceed VMEM
-            # (margulis ~42 MB) use the digit-factorized tables instead
-            # (~2.7 MB; bit-identical hops).
-            if self.allow_pseudo:
-                raise ValueError("perm='pallas' requires allow_pseudo="
-                                 "False (fractional outputs stay on the "
-                                 "XLA route)")
-            from ldpc_decoders_tpu.ops.pallas_bp import (
-                factored_tables_fit_vmem,
-                slot_tables,
-                slot_tables_factored,
-                tables_fit_vmem,
-            )
-            if tables_fit_vmem(graph):
-                self._pallas_a, _ = slot_tables(graph)
-                self._pallas_lm = None
-            elif factored_tables_fit_vmem(graph):
-                self._pallas_a = None
-                self._pallas_lm = slot_tables_factored(graph)
-            else:
-                raise ValueError("graph too large for the fused ADMM "
-                                 "kernel (factored tables exceed VMEM)")
-            vd = np.unique(np.asarray(graph.var_deg))
-            if vd.size != 1:
-                raise ValueError("perm='pallas' requires uniform variable "
-                                 "degree")
-            self._uniform_var_deg = int(vd[0])
 
     # -- per-iteration data movement, mode-dispatched --------------------
     def _sum_per_var(self, chk_vals: jnp.ndarray) -> jnp.ndarray:
@@ -149,75 +100,7 @@ class ADMMDecoder:
             return out.reshape(B, g.n_chk, g.max_chk_deg)
         return g.gather_chk(g.expand_var(per_var), fill=0.0)
 
-    # Probe depth for presort: deep enough to separate "converges like
-    # the median" from "tail/cap-bound" on every measured workload, small
-    # against the caps where presort engages.
-    PRESORT_PROBE_CAP = 256
-    # "auto" threshold: the probe must be a small fraction of the cap.
-    PRESORT_MIN_CAP = 1024
-
-    def _presort_active(self) -> bool:
-        if self.perm != "pallas" or self.presort == "off":
-            return False
-        if self.presort == "on":
-            return True
-        return self.iter_cap >= self.PRESORT_MIN_CAP
-
     def decode(self, llr: jnp.ndarray, key=None) -> tuple:
-        if self.perm == "pallas":
-            import jax
-
-            from ldpc_decoders_tpu.ops.pallas_bp import (
-                admm_decode_pallas,
-                admm_decode_pallas_factored,
-            )
-            interp = jax.default_backend() == "cpu"
-
-            def run(x, cap):
-                if self._pallas_a is not None:
-                    return admm_decode_pallas(
-                        self._pallas_a, x, mu=self.mu,
-                        eps=self.eps, max_iter=cap,
-                        n_edge=self.graph.n_edge,
-                        var_deg=self._uniform_var_deg, interpret=interp)
-                l_tab, m_tab, _ = self._pallas_lm
-                return admm_decode_pallas_factored(
-                    l_tab, m_tab, self.graph.n_var, x,
-                    mu=self.mu, eps=self.eps, max_iter=cap,
-                    n_edge=self.graph.n_edge,
-                    var_deg=self._uniform_var_deg, interpret=interp)
-
-            gamma = llr.astype(jnp.float32)
-            if not self._presort_active():
-                return run(gamma, self.iter_cap)
-            # Probe-and-sort (see __init__): rank words by a capped probe
-            # decode, decode sorted, un-permute. Bit-identical outputs —
-            # per-word trajectories are independent of block grouping.
-            probe_cap = min(self.PRESORT_PROBE_CAP, self.iter_cap)
-
-            def sorted_path(g):
-                _, it_probe = run(g, probe_cap)
-                order = jnp.argsort(it_probe, stable=True)
-                x_s, it_s = run(g[order], self.iter_cap)
-                inv = jnp.argsort(order, stable=True)
-                return x_s[inv], it_s[inv]
-
-            if self.presort == "on":
-                return sorted_path(gamma)
-            # "auto": sorting only pays when the iteration distribution
-            # has a tail past the probe cap (measured: margulis BSC
-            # p=0.05, q99=54, NO word past 256 — the full probe would be
-            # pure ~1.6x overhead; p=0.06, 1.4% past 256 hostaging ~35%
-            # of blocks — sorting is 2.3x). A 256-word mini-probe decides
-            # per chunk: ANY sampled word still unconverged at probe_cap
-            # selects the sorted path. Both branches are exact, so the
-            # gate affects throughput only.
-            m = min(256, gamma.shape[0])
-            _, it_mini = run(gamma[:m], probe_cap)
-            return lax.cond((it_mini >= probe_cap).any(),
-                            sorted_path,
-                            lambda g: run(g, self.iter_cap),
-                            gamma)
         graph = self.graph
         gamma = llr.astype(jnp.float32)
         B = gamma.shape[0]

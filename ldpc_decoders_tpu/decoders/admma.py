@@ -7,12 +7,14 @@ check degree; it can be trained offline from random vectors, or online
 *during decoding* with the exact projection as the teacher
 (admm.py:96-99), and checkpoints under cache/model_<dims>.
 
-TPU re-design: the reference crosses into a TF1 session once per ADMM
+Batched re-design: the reference crosses into a TF1 session once per ADMM
 iteration (apprx.py:62-63). Here the MLP is a pure-jax function whose
 parameters ride the ``lax.while_loop`` carry — so in train mode the
 optimizer (optax.adam) steps INSIDE the compiled decode loop: decode and
 teacher-student training fuse into one device program, zero host
-round-trips. The MLP matmuls are [B*C, D] x [D, H] — MXU work.
+round-trips. The MLP matmuls are [B*C, D] x [D, H] at the default
+matmul precision (TF32 on the GPU's tensor cores; chip_smoke.py holds
+its WER on the GPU within Monte-Carlo bounds of the CPU's).
 
 Modes (reference admm.py:89-104):
 - train=True: every z-update computes the exact projection (used by the

@@ -1,6 +1,6 @@
 """Batched ternary-message SPA for the binary erasure channel.
 
-Functional TPU re-design of the BEC-specific peeling BP in reference
+Functional batched re-design of the BEC-specific peeling BP in reference
 src/bec.py:70-122 (a distinct algorithm from the LLR-domain bpa.py; the
 reference aliases MSA = SPA for this channel, bec.py:125).
 
@@ -54,21 +54,10 @@ class BECSPADecoder:
         self.graph = graph
         self.max_iter = int(max_iter)
         self.iter_cap = self.max_iter if self.max_iter > 0 else int(iter_cap)
-        # perm="pallas": fused whole-loop kernel (ops/pallas_bp.py) —
-        # bit-equal to the gather route including iteration counts (the
-        # ternary dynamics are integer-exact; tests/test_pallas_bp.py),
-        # measured 4.3x on a v5e (111k -> 480k cw/s at batch 16384).
-        # At the DECODER level "auto" stays on the proven gather route;
-        # the harness's kernel="auto" (round 3) promotes eligible runs
-        # to this kernel with a compile-probe at the real batch shape
-        # and a fallback (MonteCarloRunner._maybe_upgrade_kernel) —
-        # probing needs the batch size, which only the harness knows.
-        # Requires a fully regular graph and tables_fit_vmem.
-        if perm == "auto":
-            perm = "gather"
-        if perm not in ("gather", "pallas"):
+        # One route: index gathers (integer ternary dynamics).
+        if perm not in ("auto", "gather"):
             raise ValueError(f"unknown perm mode {perm!r}")
-        self.perm = perm
+        self.perm = "gather"
         self.tables = self.member_tables(graph)
 
     def member_tables(self, graph: TannerGraph,
@@ -87,23 +76,6 @@ class BECSPADecoder:
                 self.graph.n_chk, self.graph.n_var,
                 self.graph.max_chk_deg, self.graph.max_var_deg):
             raise ValueError("member graph has different padded shapes")
-        if self.perm == "pallas":
-            from ldpc_decoders_tpu.ops.pallas_bp import (
-                factored_tables_fit_vmem,
-                slot_tables,
-                slot_tables_factored,
-                tables_fit_vmem,
-            )
-            if tables_fit_vmem(g):
-                pa, ph = slot_tables(g)
-                self._pallas_fac = False
-            elif factored_tables_fit_vmem(g):
-                pa, ph, _ = slot_tables_factored(g)
-                self._pallas_fac = True
-            else:
-                raise ValueError("graph too large for the fused BEC "
-                                 "kernel (factored tables exceed VMEM)")
-            return {"pa": pa, "ph": ph}
         E, Ep = g.n_edge, max(int(n_edge_pad), g.n_edge)
         chk_edge = np.asarray(g.chk_edge)
         var_edge = np.asarray(g.var_edge)
@@ -126,14 +98,6 @@ class BECSPADecoder:
         """Pure decode over *traced* member tables (see
         :meth:`member_tables`). State rides the (possibly padded) edge
         axis ``Ep = t["edge_var"].shape[-1]``."""
-        if self.perm == "pallas":
-            import jax
-
-            from ldpc_decoders_tpu.ops.pallas_bp import bec_spa_decode_pallas
-            return bec_spa_decode_pallas(
-                t["pa"], t["ph"], y, max_iter=self.iter_cap,
-                interpret=jax.default_backend() == "cpu",
-                fac=self._pallas_fac)
         g = self.graph
         B = y.shape[0]
 
@@ -210,17 +174,6 @@ class BECSPADecoder:
         a stopping set). Returns (x_hats [K, B, V], iters [K, B])."""
         caps = tuple(int(c) for c in caps)
         assert list(caps) == sorted(caps) and caps[0] >= 1
-        if self.perm == "pallas":
-            import jax
-
-            from ldpc_decoders_tpu.ops.pallas_bp import bec_spa_decode_pallas
-            x_hats, iters = bec_spa_decode_pallas(
-                self.tables["pa"], self.tables["ph"], y,
-                max_iter=caps[-1],
-                interpret=jax.default_backend() == "cpu", caps=caps,
-                fac=self._pallas_fac)
-            caps_arr = jnp.asarray(caps, jnp.int32)
-            return x_hats, jnp.minimum(iters[None], caps_arr[:, None])
         graph = self.graph
         B = y.shape[0]
         caps_arr = jnp.asarray(caps, jnp.int32)

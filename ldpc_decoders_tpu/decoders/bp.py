@@ -1,6 +1,6 @@
 """Batched LLR-domain belief propagation: SPA and MSA.
 
-Functional TPU re-design of reference src/bpa.py. The reference runs one
+Functional batched re-design of reference src/bpa.py. The reference runs one
 codeword at a time through scipy.sparse reductions with a Python loop
 (bpa.py:27-62); here the decode loop is a ``lax.while_loop`` over batched
 message tensors with per-codeword done masks, so thousands of codewords
@@ -8,12 +8,12 @@ decode per compiled step.
 
 Layout (performance-critical): messages live permanently in the padded
 check layout ``[B, C, Dc]``. The check-node update is then a pure
-reduction along the small Dc axis (VPU work, no data movement), and each
-iteration pays exactly TWO permutation gathers (check layout -> variable
-layout -> check layout, via precomputed slot maps in
+reduction along the small Dc axis (elementwise work, no data movement),
+and each iteration pays exactly TWO permutation gathers (check layout ->
+variable layout -> check layout, via precomputed slot maps in
 :class:`~ldpc_decoders_tpu.ops.graph.TannerGraph`) instead of the four
-edge-vector gathers of the naive formulation. Measured on a v5e chip this
-is ~1.4x the naive layout; with bfloat16 messages (``msg_dtype``) ~1.7x.
+edge-vector gathers of the naive formulation. bfloat16 messages
+(``msg_dtype``) halve the bytes each hop moves.
 
 Semantics preserved from the reference:
 
@@ -83,7 +83,7 @@ MSA_DEG1_GUARD = 1e30
 
 # Sentinel encoding for inf_policy="reference" (see class docstring):
 # the message plane stays a single float tensor — +-inf is +-INF_S and
-# NaN is NAN_S, so sentinels ride the one-hot MXU permutations exactly
+# NaN is NAN_S, so sentinels ride the one-hot matmul permutations exactly
 # (1e9 and 2e9 are integers < 2^31, exact in float32 and distinguishable
 # in bfloat16), and class tests are magnitude-band comparisons.
 INF_S = 1e9
@@ -178,19 +178,19 @@ class BPDecoder:
     bits (validated against golden BER curves).
 
     ``perm`` selects how the variable half-iteration moves data:
-    - "incidence" (default): messages never leave the check layout. The
-      variable marginal is ONE [B, E] x [E, V] sum matmul (each column of
+    - "gather": index-gather through the precomputed slot maps — O(E)
+      memory and traffic;
+    - "incidence": messages never leave the check layout. The variable
+      marginal is ONE [B, E] x [E, V] sum matmul (each column of
       ``a_sum`` one-hots a variable's edge slots) and the leave-one-out
       messages are ``marginal`` broadcast back through its transpose
       minus the incoming message — two [E, V]-shaped dots per iteration
-      instead of two [E, E] permutations, i.e. avg-var-degree (~3x)
-      fewer MXU FLOPs and ~3x smaller tables, same semantics;
-    - "matmul": one-hot E x E layout permutations on the MXU (~1.8x the
-      gather path on a v5e, bit-identical to it);
-    - "gather": index-gather through the precomputed slot maps — O(E)
-      memory, the fallback for very long codes.
+      instead of two [E, E] permutations, same semantics;
+    - "matmul": one-hot E x E layout permutations (bit-identical to the
+      gather route);
+    - "auto": :func:`~ldpc_decoders_tpu.ops.perm.auto_bp_perm`.
     The syndrome check in incidence/matmul mode is likewise one
-    x_hat @ H^T on the MXU (sums are exact in float32 for any realistic
+    x_hat @ H^T matmul (sums are exact in float32 for any realistic
     check degree).
     """
 
@@ -202,10 +202,7 @@ class BPDecoder:
                  check_init: bool = True, inf_policy: str = "reference",
                  dot_precision=None, **_):
         # dot_precision overrides the one-hot matmul precision policy
-        # (None = HIGHEST for f32 messages, DEFAULT for bf16). On TPU,
-        # Precision.HIGH (bf16x3 passes) reconstructs any f32 operand
-        # exactly through a one-hot selection — candidate ~2x over
-        # HIGHEST's 6 passes, gated on an on-chip bit-equality check.
+        # (None = HIGHEST for f32 messages, DEFAULT for bf16).
         self._dot_precision_override = (
             lax.Precision(dot_precision) if isinstance(dot_precision, str)
             else dot_precision)
@@ -225,7 +222,7 @@ class BPDecoder:
         # zeroes stuck words, suppressing the error floor up to ~15x at
         # low noise (validated: IREG member 3, BSC p=0.05, cap 100 —
         # golden WER 0.0144, reference-semantics 0.0159, clean
-        # saturating decoder 0.247). "saturate" is the clean TPU-native
+        # saturating decoder 0.247). "saturate" is the clean
         # policy (messages capped at LLR_CLIP, no poison), preferable
         # for any purpose other than matching the reference's curves.
         self.inf_policy = inf_policy if variant == "SPA" else "saturate"
@@ -236,21 +233,9 @@ class BPDecoder:
         self._check_rows = (spa_check_rows if variant == "SPA"
                             else msa_check_rows)
         if perm == "auto":
-            perm = ("incidence" if perm_ops.use_incidence(graph)
-                    else "gather")
-
-        if perm not in ("incidence", "matmul", "gather", "pallas"):
+            perm = perm_ops.auto_bp_perm(graph, self.msg_dtype)
+        if perm not in ("incidence", "matmul", "gather"):
             raise ValueError(f"unknown perm mode {perm!r}")
-        if perm == "pallas":
-            # Fused whole-loop kernels (ops/pallas_bp.py): MSA and SPA
-            # (both inf policies), fully regular graphs. Messages are
-            # bfloat16, or float32 via the exact-f32 kernel variants
-            # (3-term split one-hot hops, f32 scratch) for
-            # tie-structured workloads (BSC) that must not be
-            # bf16-quantized.
-            if self.msg_dtype not in (jnp.bfloat16, jnp.float32):
-                raise ValueError(f"perm='pallas' does not support "
-                                 f"msg_dtype {self.msg_dtype}")
         self.perm = perm
         self.tables = self.member_tables(graph)
 
@@ -271,25 +256,6 @@ class BPDecoder:
                 self.graph.max_chk_deg, self.graph.max_var_deg):
             raise ValueError("member graph has different padded shapes")
         t = {"cmask": g.chk_mask, "vmask": g.var_mask}
-        if self.perm == "pallas":
-            from ldpc_decoders_tpu.ops.pallas_bp import (
-                factored_tables_fit_vmem,
-                slot_tables,
-                slot_tables_factored,
-                tables_fit_vmem,
-            )
-            if tables_fit_vmem(g):
-                t["pa"], t["ph"] = slot_tables(g)
-                self._pallas_fac = False
-            elif factored_tables_fit_vmem(g):
-                # Margulis-scale: digit-factorized tables (bit-identical
-                # hops at ~16x smaller footprint; ops/pallas_bp.py).
-                t["pa"], t["ph"], _ = slot_tables_factored(g)
-                self._pallas_fac = True
-            else:
-                raise ValueError("graph too large for the fused BP "
-                                 "kernels (factored tables exceed VMEM)")
-            return t
         if self.perm == "incidence":
             t["a_sum"] = jnp.asarray(perm_ops.var_sum_matrix(g), dt)
             t["a_bc"] = jnp.asarray(perm_ops.var_broadcast_matrix(g), dt)
@@ -306,12 +272,13 @@ class BPDecoder:
     # -- layout conversion, mode-dispatched -----------------------------
     @property
     def _dot_precision(self):
-        # MXU default precision rounds float32 operands toward bfloat16,
-        # silently quantizing every message per hop — on the BSC (LLRs
-        # all equal multiples of log((1-p)/p), heavily tie-structured)
-        # this shifted the MSA WER curve ~10 sigma off the reference.
-        # HIGHEST restores exact float32; for bfloat16 messages the
-        # one-hot product is already exact either way.
+        # A reduced-precision float32 matmul (TF32 on the GPU's tensor
+        # cores, bf16 passes elsewhere) rounds every message per hop —
+        # on the BSC (LLRs all equal multiples of log((1-p)/p), heavily
+        # tie-structured) that shifted the MSA WER curve ~10 sigma off
+        # the reference (docs/PARITY.md "Numerics"). HIGHEST is IEEE
+        # float32 on the GPU; for bfloat16 messages the one-hot product
+        # is already exact either way.
         if self._dot_precision_override is not None:
             return self._dot_precision_override
         return (lax.Precision.HIGHEST if self.msg_dtype == jnp.float32
@@ -353,6 +320,8 @@ class BPDecoder:
         """[B, V] bits -> [B] bool."""
         g = self.graph
         if self.perm in ("incidence", "matmul"):
+            # 0/1 operands and integer sums <= check degree: exact at
+            # any matmul precision, TF32 included.
             s = jnp.dot(x_hat.astype(jnp.float32), t["h_t"],
                         preferred_element_type=jnp.float32)
             return (s.astype(jnp.int32) % 2 == 0).all(axis=-1)
@@ -493,21 +462,6 @@ class BPDecoder:
     def decode_tables(self, t: dict, llr: jnp.ndarray, key=None) -> tuple:
         """Pure decode over *traced* member tables (see
         :meth:`member_tables`)."""
-        if self.perm == "pallas":
-            import jax
-
-            from ldpc_decoders_tpu.ops import pallas_bp
-            if self.variant == "MSA":
-                fn = pallas_bp.msa_decode_pallas
-            elif self.inf_policy == "reference":
-                fn = pallas_bp.spa_ref_decode_pallas
-            else:
-                fn = pallas_bp.spa_decode_pallas
-            return fn(t["pa"], t["ph"], llr.astype(jnp.float32),
-                      max_iter=self.iter_cap, check_init=self.check_init,
-                      interpret=jax.default_backend() == "cpu",
-                      exact_f32=self.msg_dtype == jnp.float32,
-                      fac=self._pallas_fac)
         llr = llr.astype(jnp.float32)
         B = llr.shape[0]
 
@@ -555,25 +509,6 @@ class BPDecoder:
         """
         caps = tuple(int(c) for c in caps)
         assert list(caps) == sorted(caps) and caps[0] >= 1
-        if self.perm == "pallas":
-            import jax
-
-            from ldpc_decoders_tpu.ops import pallas_bp
-            t = self.tables
-            if self.variant == "MSA":
-                fn = pallas_bp.msa_decode_pallas
-            elif self.inf_policy == "reference":
-                fn = pallas_bp.spa_ref_decode_pallas
-            else:
-                fn = pallas_bp.spa_decode_pallas
-            x_hats, iters = fn(
-                t["pa"], t["ph"], llr.astype(jnp.float32),
-                max_iter=caps[-1], check_init=self.check_init,
-                interpret=jax.default_backend() == "cpu",
-                exact_f32=self.msg_dtype == jnp.float32, caps=caps,
-                fac=self._pallas_fac)
-            caps_arr = jnp.asarray(caps, jnp.int32)
-            return x_hats, jnp.minimum(iters[None], caps_arr[:, None])
         t = self.tables
         llr = llr.astype(jnp.float32)
         B = llr.shape[0]

@@ -2,15 +2,14 @@
 
 The reference sweeps code ensembles (10 random regular H samples) as 10
 independent cluster jobs (simulations.py:79-85 REG_ENS). Decoding them
-per-code on TPU recompiles per member — measured ~3 min of compile for
-~20 s of decode each in the REG_ENS artifact run. Same-shape ensemble
+per-code recompiles per member. Same-shape ensemble
 members differ only in their index tables, so stacking every table on a
 leading axis and ``vmap``-ing the decode turns the whole ensemble into
 ONE compiled program: [G, B, V] LLRs in, [G, B, V] decisions out —
 SURVEY.md's "stack H edge-tables on a leading axis" parallelism row.
 
 Uses the matmul permutation route (one-hot matrices stack naturally and
-the MXU batches over G); memory is G * 2 * (~E^2) matrix entries, so
+batch over G); memory is G * 2 * (~E^2) matrix entries, so
 this is for short-to-medium ensemble codes (the reference's are n=1200,
 E=3600: ~1 GB float32 at G=10).
 """
@@ -112,7 +111,8 @@ class EnsembleBPDecoder:
 
     @property
     def _dot_precision(self):
-        # Same MXU-default-precision hazard as BPDecoder._dot_precision.
+        # Same reduced-precision hazard as BPDecoder._dot_precision:
+        # HIGHEST is IEEE float32 on the GPU, not TF32.
         return (lax.Precision.HIGHEST if self.msg_dtype == jnp.float32
                 else lax.Precision.DEFAULT)
 
@@ -284,11 +284,10 @@ class EnsembleBECSPADecoder:
         Dc, Dv = self.max_chk_deg, self.max_var_deg
         B = y.shape[0]
         cmask, vmask = tables["cmask"], tables["vmask"]
-        # DEFAULT precision (bf16-rounded operands) is EXACT here: every
+        # DEFAULT precision (bf16 or TF32 operands) is EXACT here: every
         # message/marginal is a small integer (|x| <= Dv+1 << 256, exactly
         # representable in bfloat16) and the permutation matmuls select
-        # one operand per output — full MXU rate at zero numerical cost
-        # (HIGHEST was measured ~6x slower and changes nothing).
+        # one operand per output.
         prec = lax.Precision.DEFAULT
 
         def var_to_chk(x):      # [B, V, Dv] -> [B, C, Dc]; pads -> 0

@@ -4,8 +4,8 @@ Capability parity with the per-channel ML classes of the reference
 (bsc.py:63-75, bec.py:21-36, biawgn.py:66-78) — the exactness oracle used
 throughout the reference's test strategy (SURVEY.md section 4).
 
-TPU-first design: the codebook scoring reduces to one matmul per batch
-([B, n] x [n, 2^k] on the MXU):
+Batched design: the codebook scoring reduces to one matmul per batch
+([B, n] x [n, 2^k]):
 
 - BSC: log-likelihood is affine in the agreement count, and the agreement
   count is affine in (2y-1) . (2c-1);
@@ -50,6 +50,8 @@ class MLBSC(MLDecoderBase):
     def decode(self, y: jnp.ndarray, p, key) -> jnp.ndarray:
         y_pm = 2.0 * y.astype(jnp.float32) - 1.0                  # [B, n]
         # agrees = (n + y_pm . cb_pm) / 2 ; log_prob affine in agrees.
+        # +-1 operands and integer sums <= n: exact at any matmul
+        # precision, TF32 included.
         agree2 = jnp.dot(y_pm, self.cb_pm.T,
                          preferred_element_type=jnp.float32)      # [B, K]
         log_p, log_1p = jnp.log(p), jnp.log1p(-p)
@@ -65,9 +67,10 @@ class MLBiAWGN(MLDecoderBase):
 
     def decode(self, y: jnp.ndarray, snr_db, key) -> jnp.ndarray:
         # argmax of -||cb_pm - y||^2 = argmax of y . cb_pm (||cb_pm||^2 = n).
-        # HIGHEST precision: default MXU precision rounds the real-valued
-        # y toward bfloat16, making the "exact oracle" non-ML on near-tie
-        # words (BSC/BEC scores are exactly representable and unaffected).
+        # HIGHEST precision (IEEE float32 on the GPU): a reduced-precision
+        # matmul (TF32) rounds the real-valued y, making the "exact
+        # oracle" non-ML on near-tie words (BSC/BEC scores are exactly
+        # representable and unaffected).
         score = jnp.dot(y.astype(jnp.float32), self.cb_pm.T,
                         precision=jax.lax.Precision.HIGHEST,
                         preferred_element_type=jnp.float32)       # [B, K]
@@ -87,7 +90,9 @@ class MLBEC(MLDecoderBase):
         # cb [K, n] vs y [B, n] -> count via one-hot matmuls.
         y0 = jnp.where(~erased, (y == 0).astype(jnp.float32), 0.0)
         y1 = jnp.where(~erased, (y == 1).astype(jnp.float32), 0.0)
-        # codeword bit 1 disagrees with observed 0 and vice versa
+        # codeword bit 1 disagrees with observed 0 and vice versa; 0/1
+        # operands and integer sums <= n are exact at any matmul
+        # precision, TF32 included.
         diffs = jnp.dot(y0, self.cb.T, preferred_element_type=jnp.float32) \
             + jnp.dot(y1, (1.0 - self.cb).T,
                       preferred_element_type=jnp.float32)         # [B, K]

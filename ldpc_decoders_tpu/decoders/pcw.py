@@ -7,7 +7,7 @@ decodes with jittered LLRs ``1 - 2y + U[0,1)*1e-3``; distinct outputs
 (max-abs difference > tol from everything collected) are pseudo-
 codewords of the fundamental polytope.
 
-TPU re-design: all tries form ONE batch. For ADMM that is a single
+Batched re-design: all tries form ONE batch. For ADMM that is a single
 compiled batched decode ([tries, n] through the jitted while_loop); for
 LP the batch goes through the vertex-enumeration fast path. The host
 only dedupes the (small) result set.

@@ -3,8 +3,8 @@
 Mirrors the reference's argparse surface (src/utils.py:21-55 +
 src/main.py:54-64): positional channel/code/decoder validated against the
 runtime registries, the same sweep/decoder flags, console-or-file logging,
-Saver-compatible JSON output — plus TPU-specific flags (--batch, --seed,
---mesh) the reference had no counterpart for.
+Saver-compatible JSON output — plus batching and sharding flags (--batch,
+--seed, --mesh) the reference had no counterpart for.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def bind_parser_common(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
 
 def setup_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="TPU-native LDPC Monte-Carlo channel simulation")
+        description="Batched LDPC Monte-Carlo channel simulation")
     parser.add_argument("channel", choices=sorted(CHANNELS.keys()))
     parser.add_argument("code", choices=get_code_names(),
                         help="code name (set FILE_CODES_DIR for file codes)")
@@ -67,7 +67,7 @@ def setup_parser() -> argparse.ArgumentParser:
 
     parser.add_argument("--log-freq", type=float, default=5.0,
                         help="status log cadence, seconds")
-    # TPU-native knobs (no reference counterpart).
+    # Batching and sharding knobs (no reference counterpart).
     parser.add_argument("--batch", type=int, default=4096,
                         help="codewords per compiled super-batch chunk")
     parser.add_argument("--seed", type=int, default=0, help="PRNG seed")
@@ -77,27 +77,20 @@ def setup_parser() -> argparse.ArgumentParser:
     parser.add_argument("--mesh-code", type=int, default=0,
                         help="shard parity checks over an N-device "
                              "'code' mesh axis (EdgeShardedBPDecoder — "
-                             "codes too large for one chip); combine "
+                             "codes too large for one device); combine "
                              "with --mesh M for a 2-D M x N batch x "
                              "code mesh")
     parser.add_argument("--max-words", type=int, default=None,
                         help="safety cap on words per sweep point")
     parser.add_argument("--bf16", action="store_true",
-                        help="bfloat16 BP messages (faster; statistically "
-                             "equivalent curves)")
+                        help="bfloat16 BP messages (half the message "
+                             "bytes; statistically equivalent curves)")
     parser.add_argument("--inf-policy", choices=["reference", "saturate"],
                         default="reference",
                         help="SPA saturation semantics: 'reference' "
                              "reproduces the float64 inf/NaN cascade the "
                              "golden curves depend on; 'saturate' is the "
-                             "clean ~2x-faster policy (docs/SCALING.md)")
-    parser.add_argument("--kernel", choices=["auto", "xla", "pallas"],
-                        default="auto",
-                        help="compute route: 'auto' promotes the fused "
-                             "Pallas kernels where proven equivalent "
-                             "(compile-probe with XLA fallback); 'xla' "
-                             "keeps the XLA routes; 'pallas' forces the "
-                             "fused kernel")
+                             "clean, cheaper policy (docs/PARITY.md)")
     parser.add_argument("--pipeline", type=int, default=4,
                         help="chunks in flight ahead of the host sync "
                              "(matches RunConfig.pipeline)")
@@ -108,15 +101,6 @@ def setup_parser() -> argparse.ArgumentParser:
                              "min_wec; RunConfig.adaptive_pipeline)")
     parser.add_argument("--profile", action="store_true",
                         help="log per-section LoopProfiler timings")
-    parser.add_argument("--presort", choices=["auto", "on", "off"],
-                        default="auto",
-                        help="ADMM probe-and-sort (fused route): rank "
-                             "words by a capped probe decode and decode "
-                             "the batch sorted, so block-granular early "
-                             "exit tracks per-word cost at deep caps — "
-                             "bit-identical outputs; 'auto' engages at "
-                             "iter_cap >= 1024 (2.3-9x at the margulis "
-                             "cap-bound points)")
     return bind_parser_common(parser)
 
 
@@ -143,8 +127,7 @@ def main(argv=None) -> None:
         msg_dtype="bfloat16" if args.bf16 else "float32",
         pipeline=args.pipeline, profile=args.profile,
         adaptive_pipeline=not args.fixed_pipeline,
-        inf_policy=args.inf_policy, kernel=args.kernel,
-        presort=args.presort)
+        inf_policy=args.inf_policy)
 
     mesh = None
     if args.mesh_code:

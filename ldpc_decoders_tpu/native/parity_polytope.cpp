@@ -3,7 +3,7 @@
 //
 // Role: capability parity with the reference's native projection kernel
 // (reference src/parity_polytope/projection.cpp:30-275, a C++ shared
-// library driven through ctypes). On TPU the production kernel is the
+// library driven through ctypes). On the device the production kernel is the
 // batched fixed-shape JAX implementation in ops/projection.py; this C++
 // build is the independent double-precision oracle used by the test suite
 // and by host-side tools, exposed through the same kind of C ABI

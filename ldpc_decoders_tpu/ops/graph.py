@@ -3,7 +3,7 @@
 The reference decodes one codeword at a time through dynamic
 ``scipy.sparse`` matrices (reference src/bpa.py:12 builds ``np.where(H)``
 per decoder instance and re-materialises COO/CSR objects every iteration).
-On TPU we instead compile H once into fixed int32 index tables; message
+Here H compiles once into fixed int32 index tables; message
 passing becomes gather → fixed-width reduction → gather, with no scatter
 and no dynamic shapes, so XLA can fuse and tile everything.
 
@@ -261,10 +261,8 @@ def exclusive_min(x: jnp.ndarray) -> jnp.ndarray:
 
 def exclusive_sign_parity(neg: jnp.ndarray) -> jnp.ndarray:
     """Leave-one-out sign product from a 0/1 negativity mask, as
-    negative-count parity (integer adds on the VPU): equivalent to a
-    float +-1 product reduction for real inputs, cheaper, and it avoids
-    a TPU compiler crash observed when a float prod-reduce fuses with a
-    broadcast multiply and an edge-table gather. Returns int +-1."""
+    negative-count parity (integer adds): equivalent to a float +-1
+    product reduction for real inputs, and cheaper. Returns int +-1."""
     excl = neg.sum(axis=-1, keepdims=True) - neg  # exact: integer counts
     return 1 - 2 * (excl % 2)
 

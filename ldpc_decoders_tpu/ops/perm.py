@@ -1,28 +1,24 @@
-"""One-hot matrices that turn Tanner-graph data movement into MXU work.
+"""One-hot matrices that turn Tanner-graph data movement into matmuls,
+and the decoders' choice between those and index gathers.
 
 Layout permutations, per-node aggregations and the syndrome check are all
 sparse 0/1 linear maps over the padded layouts; materializing them as
-dense one-hot matrices and multiplying on the MXU measures ~1.8x the
-index-gather path on a v5e for codes whose E^2 matrices fit comfortably
-(bit-identical results — each output row has exactly one, or per-node
-degree-many, unit coefficients). Decoders auto-select this route below
-``MATMUL_PERM_MAX_EDGES`` edges and fall back to gathers beyond it.
+dense one-hot matrices turns each hop into a matmul with bit-identical
+results (each output row has exactly one, or per-node degree-many, unit
+coefficients). A gather moves O(E) values per hop where the one-hot
+product does O(E * V) multiply-adds, so the choice is a measured one
+(:func:`auto_bp_perm`).
 """
 
 from __future__ import annotations
 
+import jax.numpy as jnp
 import numpy as np
 
-# Budget for the two dense permutation matrices, measured in PADDED slots
-# (n_chk*max_chk_deg / n_var*max_var_deg — what actually sizes the
-# matrices; for irregular codes the padded layout is 2-3x n_edge, so
-# gating on raw edge count would silently pick an oversized matmul route).
-# At 8192 slots the matrices are ~260 MB bf16 / ~520 MB f32 — comfortable
-# on 16 GB HBM; gathers take over beyond it.
-MATMUL_PERM_MAX_EDGES = 8192
-# The incidence route's matrices are [C*Dc, V] — avg-var-degree times
-# smaller than the E x E permutations — so it stays affordable further
-# out (margulis: 2 x 84 MB f32 vs 2 x 1 GB for E x E).
+# Largest padded-slot count (n_chk*max_chk_deg / n_var*max_var_deg — what
+# actually sizes the matrices; for irregular codes the padded layout is
+# 2-3x n_edge) for which the incidence tables [C*Dc, V] are built at all:
+# margulis needs 2 x 84 MB in float32.
 INCIDENCE_MAX_SLOTS = 16384
 
 
@@ -31,12 +27,22 @@ def padded_slots(graph) -> int:
                graph.n_var * graph.max_var_deg)
 
 
-def use_matmul(graph) -> bool:
-    return padded_slots(graph) <= MATMUL_PERM_MAX_EDGES
+def auto_bp_perm(graph, msg_dtype) -> str:
+    """The BP data-movement route ``perm="auto"`` selects, from the H100
+    route timings at batch 16384 (PERF.md "Bring-up on the H100"):
 
+    - bfloat16 messages: "incidence". The one-hot [E, V] dots run on the
+      tensor cores and beat the gathers 2.3x (refmode SPA) to 7.0x (MSA)
+      at LDPC(1200,3,6), 1.4x to 3.5x at margulis;
+    - float32 messages: "gather". The dots run at Precision.HIGHEST on
+      IEEE float32 units, which ties the gathers for MSA and loses 2.3x
+      for refmode SPA.
 
-def use_incidence(graph) -> bool:
-    return padded_slots(graph) <= INCIDENCE_MAX_SLOTS
+    Codes past ``INCIDENCE_MAX_SLOTS`` gather in either dtype."""
+    if (jnp.dtype(msg_dtype) == jnp.bfloat16
+            and padded_slots(graph) <= INCIDENCE_MAX_SLOTS):
+        return "incidence"
+    return "gather"
 
 
 def perm_chk_to_var(graph) -> np.ndarray:
@@ -76,7 +82,7 @@ def var_broadcast_matrix(graph) -> np.ndarray:
 
 
 def parity_matrix_t(graph) -> np.ndarray:
-    """[V, C] dense H^T for the MXU syndrome check."""
+    """[V, C] dense H^T for the matmul syndrome check."""
     H = np.zeros((graph.n_chk, graph.n_var), np.float32)
     H[np.asarray(graph.edge_chk), np.asarray(graph.edge_var)] = 1.0
     return H.T.copy()

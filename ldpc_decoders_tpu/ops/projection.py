@@ -6,7 +6,7 @@ decoding (reference src/parity_polytope/projection.cpp:30-248, called once
 per check per ADMM iteration through a ctypes CSR loop,
 projection.cpp:266-275 / exact.py:41-60).
 
-TPU-first re-design. The reference walks a data-dependent merged
+Batched re-design. The reference walks a data-dependent merged
 breakpoint list with early exit — serial, branchy, one check at a time.
 Here the same two-slope waterfilling problem is solved with fixed shapes
 and no data-dependent control flow, so it vmaps over every check of every
@@ -46,8 +46,8 @@ def project_parity_polytope(v: jnp.ndarray,
 
     Sort-free: the algorithm only needs each coordinate's descending
     RANK (to split the top r+1 block from the rest), and rank is a D^2
-    pairwise comparison — pure VPU work. A jnp.sort/argsort formulation
-    measured ~20x slower inside the ADMM loop on TPU.
+    pairwise comparison — elementwise work with no sort on the tiny
+    trailing axis.
     """
     dt = v.dtype
     D = v.shape[-1]

@@ -6,8 +6,8 @@ shards: each device owns a contiguous slice of parity checks (and hence
 of edges / messages), LLRs and marginals stay replicated, and each BP
 iteration makes ONE collective — a psum of the per-device partial
 check-to-variable sums [B, V] over the ``code`` mesh axis (the classic
-tensor-parallel activation all-reduce; rides ICI). Message memory per
-device is E/n_devices — a billion-edge code fits a pod slice at the same
+tensor-parallel activation all-reduce, over NVLink). Message memory per
+device is E/n_devices — a billion-edge code fits a multi-device mesh at the same
 per-iteration math as the single-chip decoder.
 
 Check updates reuse the exact SPA/MSA row kernels of

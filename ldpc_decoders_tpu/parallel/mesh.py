@@ -2,10 +2,10 @@
 
 Design (scaling-book recipe): pick a mesh, annotate shardings, let XLA
 insert the collectives. For Monte-Carlo decoding the natural mesh is a
-single ``batch`` axis spanning every chip of every host — codeword sims
-are embarrassingly parallel, so the only collectives are the
-(tot, wec, bec) tally ``psum``s at the end of each super-batch chunk,
-which ride ICI within a slice and DCN across slices. Sweep points reuse
+single ``batch`` axis spanning every device of every host — codeword
+sims are embarrassingly parallel, so the only collectives are the
+(tot, wec, bec) tally ``psum``s at the end of each super-batch chunk
+(over NVLink within a host). Sweep points reuse
 one compilation (the channel parameter is a traced scalar), so there is
 no sweep axis to shard.
 """
@@ -20,7 +20,7 @@ import numpy as np
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> None:
-    """Multi-host entry: wire up jax.distributed over DCN. On single-host
+    """Multi-host entry: wire up jax.distributed. On single-host
     runs this is a no-op. (Replaces the reference's Slurm submitjob
     fan-out, README.md:89-93.)"""
     import jax

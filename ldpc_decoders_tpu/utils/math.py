@@ -1,8 +1,8 @@
 """Small host-side math helpers (reference src/math_utils.py equivalents).
 
 The sparse-matrix reductions of the reference (sum_axis, prod_nonzero,
-csr_csc_argmax — math_utils.py:7-94) have no counterpart here: on TPU those
-become the fixed-shape gather reductions in
+csr_csc_argmax — math_utils.py:7-94) have no counterpart here: on the
+device those become the fixed-shape gather reductions in
 :mod:`ldpc_decoders_tpu.ops.graph`. What remains are the genuinely
 host-side helpers.
 """

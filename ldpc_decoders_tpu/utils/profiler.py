@@ -3,7 +3,7 @@
 Capability parity with the reference's ``utils.LoopProfiler``
 (utils.py:159-200): context-manager tags accumulate elapsed milliseconds
 per section; every ``dump_freq`` steps the accumulated summary is logged
-and reset. Unlike the reference (defined but never wired in), the TPU
+and reset. Unlike the reference (defined but never wired in), the
 harness can enable it with ``RunConfig(profile=True)`` — useful because
 device dispatch is asynchronous and the tag boundaries make the real
 sync points visible.

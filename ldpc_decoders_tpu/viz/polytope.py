@@ -2,8 +2,8 @@
 
 Capability parity with reference src/parity_polytope/plot.py:32-123
 (interactive demos showing points and their projections onto PP_2/PP_3);
-here rendered headlessly to files, with the batched TPU kernel supplying
-the projections.
+here rendered headlessly to files, with the batched JAX projection
+supplying them.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
-"""Breadth benchmark: single-chip throughput for every jit decoder family
-(MSA, SPA, BEC-SPA, ADMM, ML) on its benchmark configuration, one JSON
-line per decoder — so regressions in the non-headline decoders are
-visible, not just the headline MSA number bench.py reports.
+"""Breadth benchmark: one-GPU throughput for every jit decoder family
+(MSA, SPA, BEC-SPA, ADMM, ML) on its benchmark configuration, through
+each XLA data-movement route, one JSON line per decoder and route — so
+regressions in the non-headline decoders are visible, not just the
+headline MSA number bench.py reports. Every line names its device and
+card; the script exits non-zero when JAX finds no GPU.
 
 Configurations mirror the reference's campaign workloads
 (simulations.py:64-77 REG sweeps for BP on LDPC(1200,3,6);
@@ -31,10 +33,7 @@ def bench_chunk(chunk, reps: int, depth: int = 4):
 
     def dispatch(i):
         t = chunk(i)
-        try:
-            t.copy_to_host_async()
-        except Exception:  # noqa: BLE001 - pure optimization
-            pass
+        t.copy_to_host_async()
         return t
 
     chunk(0).block_until_ready()
@@ -62,6 +61,17 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
+    from ldpc_decoders_tpu.utils.device import (
+        NoGPUError,
+        card_line,
+        require_gpu,
+    )
+    try:
+        device = require_gpu()
+    except NoGPUError as e:
+        sys.exit(f"bench_all.py: {e}")
+    card = card_line()
+
     from __graft_entry__ import _flagship_code
     from ldpc_decoders_tpu import get_code
     from ldpc_decoders_tpu.channels import bec, biawgn
@@ -75,10 +85,7 @@ def main() -> None:
     base_key = jax.random.PRNGKey(0)
     specs = []
 
-    def bp_spec(name, variant, desc_extra="", batch=16384, **kw):
-        # 16384 saturates the incidence matmuls for MSA (bench.py sweep:
-        # 267k -> 381k cw/s); SPA's larger per-word state (phi planes)
-        # spills there and measures faster at 8192.
+    def bp_spec(name, variant, batch=16384, **kw):
         dec = BPDecoder(code.graph, variant, max_iter=10,
                         msg_dtype=jnp.bfloat16, **kw)
         x = jnp.zeros((batch, code.get_n()), jnp.int32)
@@ -91,23 +98,20 @@ def main() -> None:
             errs = (x_hat != x).sum(axis=-1)
             return jnp.stack([(errs > 0).sum(), errs.sum()])
 
-        return (name,
-                f"{variant} it<=10 LDPC(1200,3,6) biAWGN 3dB bf16"
-                + desc_extra, batch, chunk)
+        return (f"{name}_{dec.perm}",
+                f"{variant} it<=10 LDPC(1200,3,6) biAWGN 3dB bf16 "
+                f"{dec.perm}", batch, chunk)
 
-    specs.append(bp_spec("msa", "MSA", " pallas-fused", perm="pallas"))
-    specs.append(bp_spec("msa_xla", "MSA", " incidence"))
     # SPA default = the reference's inf/NaN-cascade semantics (golden
-    # parity); "saturate" is the clean fast policy (docs/SCALING.md).
-    specs.append(bp_spec("spa", "SPA", " refmode pallas",
-                         perm="pallas"))
-    specs.append(bp_spec("spa_xla", "SPA", " refmode incidence",
-                         batch=8192))
-    specs.append(bp_spec("spa_saturate", "SPA", " saturate pallas",
-                         perm="pallas", inf_policy="saturate"))
+    # parity); "saturate" is the clean policy (docs/PARITY.md).
+    for perm in ("incidence", "gather"):
+        specs.append(bp_spec("msa", "MSA", perm=perm))
+        specs.append(bp_spec("spa", "SPA", perm=perm))
+        specs.append(bp_spec("spa_saturate", "SPA", perm=perm,
+                             inf_policy="saturate"))
 
-    def becspa_spec(name="bec_spa", **kw):
-        dec = BECSPADecoder(code.graph, max_iter=10, **kw)
+    def becspa_spec(name="bec_spa"):
+        dec = BECSPADecoder(code.graph, max_iter=10)
         batch = 16384
         x = jnp.zeros((batch, code.get_n()), jnp.int32)
 
@@ -120,14 +124,14 @@ def main() -> None:
             return jnp.stack([(errs > 0).sum(), errs.sum()])
 
         return (name, "ternary SPA it<=10 LDPC(1200,3,6) BEC eps=.3 "
-                + (kw.get("perm") or "auto"), batch, chunk)
+                "gather", batch, chunk)
 
-    specs.append(becspa_spec(perm="pallas"))
-    specs.append(becspa_spec("bec_spa_gather", perm="gather"))
+    specs.append(becspa_spec())
 
-    def admm_spec(name="admm", **kw):
-        dec = ADMMDecoder(code.graph, mu=3.0, eps=1e-5, max_iter=50, **kw)
-        batch = 2048
+    def admm_spec(perm):
+        dec = ADMMDecoder(code.graph, mu=3.0, eps=1e-5, max_iter=50,
+                          perm=perm)
+        batch = 16384
         x = jnp.zeros((batch, code.get_n()), jnp.int32)
 
         @jax.jit
@@ -138,11 +142,11 @@ def main() -> None:
             errs = (x_hat != x).sum(axis=-1)
             return jnp.stack([(errs > 0).sum(), errs.sum()])
 
-        return (name, "ADMM it<=50 LDPC(1200,3,6) biAWGN 3dB "
-                + (kw.get("perm") or "gather"), batch, chunk)
+        return (f"admm_{perm}", f"ADMM it<=50 LDPC(1200,3,6) biAWGN 3dB "
+                f"{perm}", batch, chunk)
 
-    specs.append(admm_spec("admm", perm="pallas"))
-    specs.append(admm_spec("admm_xla"))
+    specs.append(admm_spec("gather"))
+    specs.append(admm_spec("matmul"))
 
     def ml_spec():
         dec = MLBiAWGN(hamming)
@@ -167,9 +171,10 @@ def main() -> None:
             continue
         dt, wec = bench_chunk(chunk, args.reps)
         cw_per_s = args.reps * batch / dt
-        line = {"metric": f"decoded_codewords_per_sec_1chip_{name}",
-                "config": desc, "value": round(cw_per_s, 1),
-                "unit": "codewords/s", "wec": wec}
+        line = {"metric": f"decoded_codewords_per_sec_1gpu_{name}",
+                "config": desc, "value": cw_per_s,
+                "unit": "codewords/s", "wec": wec, "device": device,
+                "card": card}
         lines.append(line)
         print(json.dumps(line), flush=True)
 

@@ -1,11 +1,10 @@
-"""Harness-route throughput: what a CAMPAIGN actually gets per chip.
+"""Harness-route throughput: what a CAMPAIGN actually gets per GPU.
 
 bench.py / bench_all.py time hand-built decoder chunks; this script
-times MonteCarloRunner itself (sampling + decode + psum tallies +
-adaptive loop) on the flagship campaign workloads, once with the
-default kernel='auto' (fused Pallas where proven equivalent,
-probe-with-fallback) and once with kernel='xla' — the delta is the
-wall-clock a REG/ensemble campaign saves from the auto-selection.
+times MonteCarloRunner itself (sampling + decode + tallies + adaptive
+loop) on the flagship campaign workloads, through the routes "auto"
+selects. Every line names its device and card; the script exits
+non-zero when JAX finds no GPU.
 
 Usage:  python scripts/bench_harness.py [--words N] [--out FILE]
 """
@@ -29,10 +28,17 @@ def main() -> None:
     ap.add_argument("--only", nargs="*", default=None)
     args = ap.parse_args()
 
-    from bench import wait_for_backend
-    wait_for_backend()
-
     from ldpc_decoders_tpu.harness import MonteCarloRunner, RunConfig
+    from ldpc_decoders_tpu.utils.device import (
+        NoGPUError,
+        card_line,
+        require_gpu,
+    )
+    try:
+        device = require_gpu()
+    except NoGPUError as e:
+        sys.exit(f"bench_harness.py: {e}")
+    card = card_line()
 
     # (name, cfg kwargs) — campaign operating points (def_cases params).
     CASES = [
@@ -44,20 +50,12 @@ def main() -> None:
                                 msg_dtype="bfloat16")),
         ("bec_spa", dict(channel="bec", decoder="SPA", params=[0.3],
                          codeword=0, batch=16384)),
-        # BSC float32 auto routes to the exact-f32 fused kernels (3-term
-        # split hops; chip-validated: MSA 271k vs 111k XLA, refmode SPA
-        # 140k vs ~45k).
         ("bsc_msa_f32", dict(channel="bsc", decoder="MSA", params=[0.06],
                              codeword=1, batch=16384)),
         ("bsc_spa_ref_f32", dict(channel="bsc", decoder="SPA",
                                  params=[0.06], codeword=0, batch=8192)),
-        # ADMM wants the big batch: the fused kernel is iteration-bound
-        # and block-granular (B=16384 measures ~2x B=2048 —
-        # docs/SCALING.md "ADMM throughput: the measured roofline").
         ("admm", dict(channel="biawgn", decoder="ADMM", params=[3.0],
                       codeword=1, batch=16384, max_iter=50)),
-        # Margulis ADMM: dense one-hots exceed VMEM, so auto promotes
-        # the digit-factorized fused kernel (round 4).
         ("mar_admm", dict(channel="bsc", code="margulis", decoder="ADMM",
                           params=[0.06], codeword=1, batch=2048,
                           max_iter=200, words=20_480)),
@@ -67,30 +65,23 @@ def main() -> None:
     for name, kw in CASES:
         if args.only and name not in args.only:
             continue
-        for kernel in kw.get("kernels", ("auto", "xla")):
-            # Fresh copy per kernel iteration: popping from the shared
-            # case dict and hand-restoring keys silently changed the
-            # second (xla) iteration's config whenever a restore was
-            # forgotten (ADVICE r4).
-            local = {k: v for k, v in kw.items() if k != "kernels"}
-            code = local.pop("code", "1200_3_6_ldpc")
-            words = local.pop("words", args.words)
-            cfg = RunConfig(code=code, min_wec=10 ** 9,
-                            max_words=words, log_freq=1e9,
-                            kernel=kernel,
-                            max_iter=local.pop("max_iter", 10),
-                            **local)
-            runner = MonteCarloRunner(cfg)
-            t0 = time.time()
-            res = runner.run()[cfg.params[0]]
-            wall = time.time() - t0
-            route = getattr(getattr(runner.dec, "dec", None), "perm", "?")
-            line = {"metric": f"harness_words_per_sec_{name}_{kernel}",
-                    "route": route, "value": round(res["words_per_sec"], 1),
-                    "unit": "codewords/s", "tot": res["tot"],
-                    "wall_s": round(wall, 1)}
-            lines.append(line)
-            print(json.dumps(line), flush=True)
+        local = dict(kw)
+        code = local.pop("code", "1200_3_6_ldpc")
+        words = local.pop("words", args.words)
+        cfg = RunConfig(code=code, min_wec=10 ** 9, max_words=words,
+                        log_freq=1e9, max_iter=local.pop("max_iter", 10),
+                        **local)
+        runner = MonteCarloRunner(cfg)
+        t0 = time.time()
+        res = runner.run()[cfg.params[0]]
+        wall = time.time() - t0
+        route = getattr(getattr(runner.dec, "dec", None), "perm", "?")
+        line = {"metric": f"harness_words_per_sec_{name}",
+                "route": route, "value": res["words_per_sec"],
+                "unit": "codewords/s", "tot": res["tot"],
+                "wall_s": wall, "device": device, "card": card}
+        lines.append(line)
+        print(json.dumps(line), flush=True)
 
     if args.out:
         with open(args.out, "a") as fp:

@@ -1,9 +1,9 @@
 """Scaling-efficiency benchmark: sharded Monte-Carlo chunk over an
 N-device batch mesh vs single device.
 
-On a real pod slice this reports the ICI/DCN scaling curve (target:
->=90% efficiency, BASELINE.json); on a dev box, run with --cpu N to
-validate the mechanism on a simulated N-device CPU mesh.
+On a multi-GPU host this reports the scaling efficiency (target: >=90%,
+BASELINE.json); with --cpu N it validates the mechanism on a simulated
+N-device CPU mesh (no timing meaning).
 
 Usage:
   python scripts/bench_scaling.py                 # all local devices

@@ -2,9 +2,9 @@
 
 The joint EnsembleMonteCarloRunner is the right tool for the broad part
 of the sweep (one compilation, all members), but at the deep-tail points
-the per-word cost matters more than compile time: measured on the v5e,
-single-member BEC SPA decodes ~79k words/s while the G=10 joint program
-runs ~620 words/s aggregate (docs/SCALING.md).  The reference spent
+the per-word cost matters more than compile time, and a single-member
+decode does far less work per word than the G=10 joint program.  The
+reference spent
 ~0.8-1.1M words per member at eps=0.31 and ~4.6-4.9M at eps=0.3
 (data/output/bec-1200_3_6_rand_ldpc_*-SPA-10-0.json), so the tails are
 per-member work by construction: 10 members x 6M words ~ a few minutes

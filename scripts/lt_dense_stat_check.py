@@ -1,16 +1,13 @@
-"""Round-5 statistical receipt: golden-scale LT through the DENSE MXU
-engine on the real chip, many sims, mean/std/tail vs the reference
-golden (luby-10000-12000-0.01-0.5.json: mean 10606.4, std 425.2,
-2750 sims).
+"""Statistical check: golden-scale LT through the DENSE peel engine,
+many sims, mean/std vs the reference golden
+(luby-10000-12000-0.01-0.5.json: mean 10606.4, std 425.2, 2750 sims).
 
 The engines are bit-identical per sim (test_dense_engine_matches_sparse)
-so this is belt-and-braces — a chip-scale draw through the dense path
-landing inside the golden's Monte-Carlo band. Host graph sampling
-overlaps the previous batch's device decode (same pattern as the CLI).
+so this is belt-and-braces — a large draw through the dense path landing
+inside the golden's Monte-Carlo band. Host graph sampling overlaps the
+previous batch's device decode (same pattern as the CLI).
 
-Run on the real chip (background, generous timeout):
-    python scripts/lt_dense_stat_check.py --sims 512 \
-        --out artifacts/data/lt_dense_probe_r5.jsonl
+    python scripts/lt_dense_stat_check.py --sims 512 [--out FILE]
 """
 from __future__ import annotations
 
@@ -33,9 +30,6 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=77)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-
-    from bench import wait_for_backend
-    wait_for_backend()
 
     import numpy as np
 

@@ -11,7 +11,7 @@ Configurations mirror the committed goldens:
   IREG members: max_iter=100 (bsc-1200_rho_x5_rand_ldpc_*-{MSA-1-100,
                 SPA-0-100}, biawgn likewise)
 float32 messages throughout (the BSC tie structure is not bf16-safe;
-docs/SCALING.md "Precision").
+docs/PARITY.md "Numerics").
 """
 import logging
 import os

@@ -1,10 +1,8 @@
 """Time the base-code REG campaign (the five def_cases sweeps on
-LDPC(1200,3,6), reference simulations.py:27-39 `exc_def_cases`) with the
-default kernel='auto' route — the wall-clock evidence that the fused
-Pallas auto-selection pays at campaign scale (docs/SCALING.md "Kernel
-routes").
+LDPC(1200,3,6), reference simulations.py:27-39 `exc_def_cases`) through
+the routes "auto" selects.
 
-Usage: python scripts/regen_reg.py [--data_dir DIR] [--kernel auto|xla]
+Usage: python scripts/regen_reg.py [--data_dir DIR] [--batch N]
 Writes the Saver JSONs to --data_dir (default: a temp dir — pass
 artifacts/data to refresh the committed artifacts) and prints one
 timing line per sweep plus the total.
@@ -25,12 +23,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--data_dir", default=None)
-    ap.add_argument("--kernel", default="auto")
     ap.add_argument("--batch", type=int, default=16384)
     args = ap.parse_args()
-
-    from bench import wait_for_backend
-    wait_for_backend()
 
     from ldpc_decoders_tpu.campaign import def_cases
     from ldpc_decoders_tpu.harness import MonteCarloRunner
@@ -39,15 +33,14 @@ def main() -> None:
     t_all = time.time()
     for cfg in def_cases("1200_3_6_ldpc"):
         cfg = dataclasses.replace(
-            cfg, data_dir=data_dir, batch=args.batch, kernel=args.kernel,
-            log_freq=1e9,
+            cfg, data_dir=data_dir, batch=args.batch, log_freq=1e9,
             msg_dtype=("bfloat16" if cfg.channel == "biawgn"
                        else "float32"))
         t0 = time.time()
         MonteCarloRunner(cfg).run()
         print(f"{cfg.channel}-{cfg.decoder}: {time.time() - t0:.1f}s",
               flush=True)
-    print(f"REG total ({args.kernel}): {time.time() - t_all:.1f}s  "
+    print(f"REG total: {time.time() - t_all:.1f}s  "
           f"-> {data_dir}")
 
 

@@ -4,9 +4,11 @@
 # case names forwarded to the campaign registry; command lines are
 # emitted by --emit and executed here.
 #
-# Note: on TPU the parallelism lives inside each run (batched codewords
-# over the mesh), so PARA mostly matters for CPU-bound cases (LP) or
-# multi-process host setups — for one chip SEQL is usually what you want.
+# The parallelism lives inside each run (batched codewords over the
+# mesh). PARA runs one worker per visible GPU, pinned to it with
+# CUDA_VISIBLE_DEVICES and running its share of the lines in sequence:
+# a JAX process reserves most of its card's memory, so two on one card
+# would fail. With no GPU, PARA is one CPU worker.
 #
 # Usage: ./scripts/run_sims.sh SEQL REG_BAD --data_dir=/tmp/out
 set -euo pipefail
@@ -27,15 +29,31 @@ done
 # jobs inside a subshell, leaving the outer `wait` nothing to wait on).
 mapfile -t lines < <(python -m ldpc_decoders_tpu.campaign "${cases[@]}" --emit)
 
-for line in "${lines[@]}"; do
-  cmd="python -u -m ldpc_decoders_tpu.main $line ${extra[*]-}"
-  echo ">> $cmd"
-  if [ "$mode" = "PARA" ]; then
-    eval "$cmd" &
-  else
-    eval "$cmd"
-  fi
-done
+run_line() {
+  local cmd="python -u -m ldpc_decoders_tpu.main $1 ${extra[*]-}"
+  echo ">> ${2:+[card $2] }$cmd"
+  eval "$cmd"
+}
 
-[ "$mode" = "PARA" ] && wait
-echo "run_sims done"
+if [ "$mode" != "PARA" ]; then
+  for line in "${lines[@]}"; do run_line "$line"; done
+  exit 0
+fi
+
+if [ -n "${CUDA_VISIBLE_DEVICES-}" ]; then
+  IFS=, read -ra cards <<< "$CUDA_VISIBLE_DEVICES"
+else
+  mapfile -t cards < <(nvidia-smi --query-gpu=index --format=csv,noheader \
+                       2>/dev/null || true)
+fi
+n=${#cards[@]}
+for slot in $(seq 0 $(( (n > 0 ? n : 1) - 1 ))); do
+  (
+    if [ "$n" -gt 0 ]; then export CUDA_VISIBLE_DEVICES="${cards[$slot]}"; fi
+    for i in "${!lines[@]}"; do
+      if (( n > 0 && i % n != slot )); then continue; fi
+      run_line "${lines[$i]}" "${cards[$slot]-}"
+    done
+  ) &
+done
+wait

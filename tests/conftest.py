@@ -1,10 +1,10 @@
-"""Test configuration: force a simulated 8-device CPU backend so multi-chip
-sharding paths are exercised without TPU hardware (SURVEY.md section 4's
-"genuine upgrade the reference lacks").
+"""Test configuration: the tests run on the CPU backend with 8 simulated
+devices, so multi-device sharding paths run without accelerator hardware
+(SURVEY.md section 4's "genuine upgrade the reference lacks"). The GPU
+path is checked by ``python chip_smoke.py`` on the card.
 
-Note: env-var platform selection (JAX_PLATFORMS) can be overridden by
-site-installed PJRT plugins, so we use jax.config, which must run before
-any backend initialises — hence this lives at the top of conftest.
+jax.config is set here, before any backend initialises, so the choice
+holds whatever JAX_PLATFORMS says.
 """
 
 import jax

@@ -3,7 +3,7 @@
 Each worker is one "host" of a 2-process jax.distributed job (CPU
 backend, 4 forced devices per process -> 8 global devices). It runs the
 standard MonteCarloRunner sweep over the *global* mesh — the same code
-path a real multi-host TPU pod uses (reference cluster contract:
+path a real multi-host deployment uses (reference cluster contract:
 README.md:89-93, one Slurm task per host) — and prints the tallies as a
 JSON line for the parent test to compare across processes.
 

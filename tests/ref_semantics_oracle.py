@@ -61,6 +61,60 @@ def decode_spa_ref(parity_mtx, llr, max_iter):
     return x_hat
 
 
+def decode_msa_ref(parity_mtx, llr, max_iter, check_init=True):
+    """Min-sum in float64 (reference src/bpa.py:27-62 + 86-102), batched
+    over words: each check sends sign-parity times the leave-one-out
+    minimum magnitude, ``v2c = marginal - c2v``, decisions from the
+    marginal's sign, syndrome checked before every iteration.
+    ``check_init=False`` skips the iteration-0 exit, as the biAWGN
+    decoders do (the reference starts from the real-valued y). Returns
+    (x_hat [B, V] int, iters [B] int)."""
+    H = np.asarray(parity_mtx)
+    chk_of_e, var_of_e = np.where(H)
+    E = len(chk_of_e)
+    C, V = H.shape
+    inc_v = sp.csr_matrix((np.ones(E), (var_of_e, np.arange(E))),
+                          shape=(V, E))
+    # Check rows as padded edge-index lists, for the leave-one-out min.
+    dc = int(H.sum(axis=1).max())
+    rows = np.full((C, dc), -1)
+    for c in range(C):
+        e = np.nonzero(chk_of_e == c)[0]
+        rows[c, :e.size] = e
+    pad = rows < 0
+
+    llr = np.asarray(llr, np.float64)
+    B = llr.shape[0]
+    v2c = llr[:, var_of_e].copy()
+    x_hat = (llr < 0).astype(np.int64)
+    iters = np.zeros(B, np.int64)
+    done = (((x_hat @ H.T) % 2 == 0).all(axis=1) if check_init
+            else np.zeros(B, bool))
+    for _ in range(max_iter):
+        if done.all():
+            break
+        act = ~done
+        m = v2c[act][:, np.where(pad, 0, rows)]             # [b, C, dc]
+        mag = np.where(pad, np.inf, np.abs(m))
+        neg = np.where(pad, 0, m < 0).sum(axis=-1) % 2       # [b, C]
+        order = np.argsort(mag, axis=-1, kind="stable")
+        min1 = np.take_along_axis(mag, order[..., :1], -1)
+        min2 = np.take_along_axis(mag, order[..., 1:2], -1)
+        slot = np.arange(dc)
+        ext = np.where(slot == order[..., :1], min2, min1)
+        sgn = np.where((neg[..., None] + (m < 0)) % 2 == 1, -1.0, 1.0)
+        c2v = np.zeros((int(act.sum()), E))
+        c2v[:, rows[~pad]] = (sgn * ext)[:, ~pad]
+        marg = llr[act] + c2v @ inc_v.T                      # [b, V]
+        v2c[act] = marg[:, var_of_e] - c2v
+        xa = (marg < 0).astype(np.int64)
+        x_hat[act] = xa
+        iters[act] += 1
+        idx = np.where(act)[0]
+        done[idx[((xa @ H.T) % 2 == 0).all(axis=1)]] = True
+    return x_hat, iters
+
+
 def decode_bec_ref(parity_mtx, y, max_iter):
     """Reference-semantics ternary BEC SPA (src/bec.py:70-122), one word:
     echo / single-unknown parity resolve / stopping-set exit. Used to

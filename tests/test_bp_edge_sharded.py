@@ -134,7 +134,7 @@ def test_spa_reference_policy_matches_single_device(mesh):
     # Iteration counts must agree on every MATCHING word even when one
     # knife-edge word differs — a systematic porting bug in the sharded
     # sentinel cascade would desynchronize counts across the whole batch,
-    # not just the tied word (ADVICE r4).
+    # not just the tied word.
     np.testing.assert_array_equal(np.asarray(its)[word_ok],
                                   np.asarray(itr)[word_ok])
     # The cascade must actually have fired somewhere at this depth

@@ -95,7 +95,7 @@ def test_cap_sweep_zero_label_biawgn(tmp_path):
     assert res[10][2.0]["wer"] < 0.5
 
 
-# ---- fused-kernel (pallas) multi-cap route --------------------------------
+# ---- multi-cap snapshots on every route, full-width code ------------------
 
 @pytest.fixture(scope="module")
 def reg_code():
@@ -103,76 +103,83 @@ def reg_code():
 
 
 PCAPS = [1, 2, 3, 6]
+ROUTES = ["incidence", "matmul", "gather"]
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_pallas_multi_cap_msa_matches_xla(reg_code, dtype):
-    """The fused MSA kernel's snapshot planes are bit-equal to the XLA
-    decode_multi_cap route (the single-cap kernels are bit-identical to
-    the incidence route; snapshots must not change that)."""
+@pytest.mark.parametrize("route", ROUTES)
+def test_multi_cap_msa_matches_per_cap_on_route(reg_code, dtype, route):
+    """MSA snapshot planes on each route are bit-equal to separate
+    decodes at each cap through the same route."""
     key = jax.random.PRNGKey(11)
     x = jnp.ones((64, 1200), jnp.int32)
-    y = bsc_mod.send(key, x, 0.06)
-    llr = bsc_mod.llr(y, 0.06)
+    llr = bsc_mod.llr(bsc_mod.send(key, x, 0.06), 0.06)
     dt = jnp.dtype(dtype)
-    xla = BPDecoder(reg_code.graph, "MSA", max_iter=PCAPS[-1],
-                    msg_dtype=dt)
-    pal = BPDecoder(reg_code.graph, "MSA", max_iter=PCAPS[-1],
-                    msg_dtype=dt, perm="pallas")
-    xs_x, it_x = xla.decode_multi_cap(llr, PCAPS)
-    xs_p, it_p = pal.decode_multi_cap(llr, PCAPS)
-    np.testing.assert_array_equal(np.asarray(xs_x), np.asarray(xs_p))
-    np.testing.assert_array_equal(np.asarray(it_x), np.asarray(it_p))
-
-
-@pytest.mark.parametrize("policy", ["saturate", "reference"])
-def test_pallas_multi_cap_spa_matches_per_cap(reg_code, policy):
-    """SPA snapshot planes (both inf policies, exact-f32 variants) are
-    bit-exact with separate fused decodes at each cap."""
-    key = jax.random.PRNGKey(12)
-    x = jnp.ones((32, 1200), jnp.int32)
-    y = bsc_mod.send(key, x, 0.07)
-    llr = bsc_mod.llr(y, 0.07)
-    pal = BPDecoder(reg_code.graph, "SPA", max_iter=PCAPS[-1],
-                    inf_policy=policy, perm="pallas")
-    xs, its = pal.decode_multi_cap(llr, PCAPS)
+    dec = BPDecoder(reg_code.graph, "MSA", max_iter=PCAPS[-1],
+                    msg_dtype=dt, perm=route)
+    xs, its = dec.decode_multi_cap(llr, PCAPS)
     for k, cap in enumerate(PCAPS):
-        d1 = BPDecoder(reg_code.graph, "SPA", max_iter=cap,
-                       inf_policy=policy, perm="pallas")
-        xr, ir = d1.decode(llr)
+        xr, ir = BPDecoder(reg_code.graph, "MSA", max_iter=cap,
+                           msg_dtype=dt, perm=route).decode(llr)
         np.testing.assert_array_equal(np.asarray(xs[k]), np.asarray(xr),
                                       err_msg=f"cap {cap}")
         np.testing.assert_array_equal(np.asarray(its[k]), np.asarray(ir),
                                       err_msg=f"iters cap {cap}")
 
 
-def test_pallas_multi_cap_bec_matches_xla(reg_code):
-    """Ternary BEC snapshots are bit-equal to the XLA multi-cap route
-    (integer dynamics, including stopping-set freezes)."""
+@pytest.mark.parametrize("policy", ["saturate", "reference"])
+@pytest.mark.parametrize("route", ROUTES)
+def test_multi_cap_spa_matches_per_cap_on_route(reg_code, policy, route):
+    """SPA snapshot planes (both inf policies, float32) are bit-exact
+    with separate decodes at each cap through the same route."""
+    key = jax.random.PRNGKey(12)
+    x = jnp.ones((32, 1200), jnp.int32)
+    llr = bsc_mod.llr(bsc_mod.send(key, x, 0.07), 0.07)
+    dec = BPDecoder(reg_code.graph, "SPA", max_iter=PCAPS[-1],
+                    inf_policy=policy, perm=route)
+    xs, its = dec.decode_multi_cap(llr, PCAPS)
+    for k, cap in enumerate(PCAPS):
+        xr, ir = BPDecoder(reg_code.graph, "SPA", max_iter=cap,
+                           inf_policy=policy, perm=route).decode(llr)
+        np.testing.assert_array_equal(np.asarray(xs[k]), np.asarray(xr),
+                                      err_msg=f"cap {cap}")
+        np.testing.assert_array_equal(np.asarray(its[k]), np.asarray(ir),
+                                      err_msg=f"iters cap {cap}")
+
+
+def test_multi_cap_bec_full_width(reg_code):
+    """Ternary BEC snapshots on the full-width code, including
+    stopping-set freezes, equal per-cap decodes."""
     key = jax.random.PRNGKey(13)
     x = jnp.ones((64, 1200), jnp.int32)
     y = bec_mod.send(key, x, 0.4)
-    xla = BECSPADecoder(reg_code.graph, max_iter=PCAPS[-1])
-    pal = BECSPADecoder(reg_code.graph, max_iter=PCAPS[-1], perm="pallas")
-    xs_x, it_x = xla.decode_multi_cap(y, PCAPS)
-    xs_p, it_p = pal.decode_multi_cap(y, PCAPS)
-    np.testing.assert_array_equal(np.asarray(xs_x), np.asarray(xs_p))
-    np.testing.assert_array_equal(np.asarray(it_x), np.asarray(it_p))
+    xs, its = BECSPADecoder(reg_code.graph,
+                            max_iter=PCAPS[-1]).decode_multi_cap(y, PCAPS)
+    for k, cap in enumerate(PCAPS):
+        xr, ir = BECSPADecoder(reg_code.graph, max_iter=cap).decode(y)
+        np.testing.assert_array_equal(np.asarray(xs[k]), np.asarray(xr))
+        np.testing.assert_array_equal(np.asarray(its[k]), np.asarray(ir))
 
 
-def test_cap_sweep_runner_pallas_route_tallies(reg_code, tmp_path):
-    """CapSweepRunner with kernel='pallas' (forced; interpreter on CPU)
-    produces the same per-cap tallies as the XLA route — the REG_BAD
-    campaign contract for the fused route (exact-f32 BSC kernels are
-    bit-equal, so the tallies must match exactly)."""
+@pytest.mark.parametrize("route", ROUTES)
+def test_cap_sweep_runner_tallies_on_route(reg_code, route, monkeypatch):
+    """CapSweepRunner through each BP route (forced via the "auto"
+    policy): the REG_BAD campaign contract — every route's per-cap
+    tallies agree with the gather route's within the float bar (BSC
+    float32 ties), the raw-output slot exactly."""
+    from ldpc_decoders_tpu.ops import perm as perm_ops
+
     kw = dict(channel="bsc", code="1200_3_6_ldpc", decoder="MSA",
               params=[0.06], codeword=1, min_wec=5, batch=64,
               max_words=128, log_freq=1e9)
-    res_x = CapSweepRunner(RunConfig(kernel="xla", **kw),
-                           [0] + PCAPS).run()
-    res_p = CapSweepRunner(RunConfig(kernel="pallas", **kw),
-                           [0] + PCAPS).run()
+    res = {}
+    for r in ("gather", route):
+        monkeypatch.setattr(perm_ops, "auto_bp_perm", lambda g, d, r=r: r)
+        runner = CapSweepRunner(RunConfig(**kw), [0] + PCAPS)
+        assert runner.dec.perm == r
+        res[r] = runner.run()
     for lbl in [0] + PCAPS:
-        sx, sp = res_x[lbl][0.06], res_p[lbl][0.06]
-        assert (sx["tot"], sx["wec"], sx["bec"]) == \
-            (sp["tot"], sp["wec"], sp["bec"]), lbl
+        sg, sr = res["gather"][lbl][0.06], res[route][lbl][0.06]
+        assert sg["tot"] == sr["tot"]
+        bar = 0 if lbl == 0 else 0.01 * sg["tot"]
+        assert abs(sg["wec"] - sr["wec"]) <= bar, (lbl, sg, sr)

@@ -13,6 +13,7 @@ import pytest
 
 from ldpc_decoders_tpu import codes
 from ldpc_decoders_tpu.channels import CHANNELS
+from ldpc_decoders_tpu.utils.compare import mismatch_counts, within_float_bar
 
 KW = {"max_iter": 100}
 
@@ -168,9 +169,10 @@ def test_bp_f32_routes_tie_jitter_bound():
     differ in SUMMATION ORDER of the per-variable marginal, and the odd
     exact tie flips: a handful of words per thousand differ in
     iteration count and the occasional already-errored word differs in
-    its (wrong) decision bits. Pin that contract (the exact-f32 Pallas
-    kernel is held to the same bar, tests/test_pallas_bp.py); golden
-    BSC agreement is and must be statistical, not bit-exact."""
+    its (wrong) decision bits. Pin that contract (every float route, and
+    the GPU against the CPU in chip_smoke.py, is held to the same bar,
+    ldpc_decoders_tpu/utils/compare.py); golden BSC agreement is and
+    must be statistical, not bit-exact."""
     from ldpc_decoders_tpu.channels import bsc
     from ldpc_decoders_tpu.decoders.bp import BPDecoder
 
@@ -191,3 +193,34 @@ def test_bp_f32_routes_tie_jitter_bound():
     it_mism = int((outs["incidence"][1] != outs["gather"][1]).sum())
     assert it_mism <= 0.03 * B, it_mism
     assert it_mism + dec_mism > 0  # the jitter is real at this point
+    assert (dec_mism, it_mism) == mismatch_counts(*outs["incidence"],
+                                                  *outs["gather"])
+    assert within_float_bar(dec_mism, it_mism, B)
+
+
+@pytest.mark.parametrize("code_name", ["7_4_hamming", "1200_3_6_ldpc",
+                                       "1200_rho_x5_rand_ldpc_1"])
+@pytest.mark.parametrize("channel", ["bsc", "biawgn"])
+def test_msa_matches_float64_oracle(code_name, channel):
+    """BPDecoder MSA (float32) against the float64 min-sum oracle of
+    tests/ref_semantics_oracle.py: decisions within the float bar. At
+    BSC p=0.05 and biAWGN 2 dB no exact-tie sum is rounded, so iteration
+    counts agree too."""
+    from ldpc_decoders_tpu.channels import biawgn, bsc
+    from ldpc_decoders_tpu.decoders.bp import BPDecoder
+    from tests.ref_semantics_oracle import decode_msa_ref
+
+    code = codes.get_code(code_name)
+    B = 128
+    xw = jnp.zeros((B, code.get_n()), jnp.int32)
+    if channel == "bsc":
+        llr = bsc.llr(bsc.send(jax.random.PRNGKey(1), xw, 0.05), 0.05)
+    else:
+        llr = biawgn.llr(biawgn.send(jax.random.PRNGKey(2), xw, 2.0), 2.0)
+    check_init = channel != "biawgn"
+    xh, it = BPDecoder(code.graph, "MSA", max_iter=20,
+                       check_init=check_init).decode(llr)
+    xr, ir = decode_msa_ref(code.parity_mtx, np.asarray(llr, np.float64),
+                            20, check_init=check_init)
+    dec, its = mismatch_counts(xh, it, xr, ir)
+    assert within_float_bar(dec, its, B), (dec, its)

@@ -107,7 +107,7 @@ def test_runner_lp_host_path():
     ("bsc-7_4_hamming-MSA-10-1.json", "0.06", "bsc", "MSA", 1),
     ("biawgn-7_4_hamming-SPA-10-1.json", "5.0", "biawgn", "SPA", 1),
     # LP on all three channels (reference simulations.py:52-61; the BSC
-    # point is the VERDICT anchor: golden WER 3.10e-2 at p=0.01). The
+    # point is the BASELINE.md anchor: golden WER 3.10e-2 at p=0.01). The
     # vertex fast path's tie handling was verified to match scipy
     # interior-point (the reference's method) word-for-word.
     ("bsc-7_4_hamming-LP-10-1.json", "0.01", "bsc", "LP", 1),
@@ -340,7 +340,7 @@ def test_margulis_admm_golden_agreement():
 
 
 def test_adaptive_pipeline_stops_at_target():
-    """VERDICT r2 item 8: at easy sweep points the adaptive pipeline
+    """At easy sweep points the adaptive pipeline
     must not keep a depth-4 surplus in flight past min_wec — and the
     tallies must equal the fully synchronous (pipeline=1) run exactly,
     because chunk i's contents depend only on (key, i, param)."""
@@ -378,21 +378,3 @@ def test_adaptive_pipeline_fills_at_deep_tails():
     assert st["dispatched"] > 8
     assert res["wec"] >= 10
 
-
-def test_transient_backend_error_classifier():
-    """Kernel-probe fallback vs re-raise is decided by exception TYPE +
-    status PREFIX, not a substring anywhere in the text (ADVICE r4)."""
-    from jax.errors import JaxRuntimeError
-
-    from ldpc_decoders_tpu.utils.backend import is_transient_backend_error
-
-    assert is_transient_backend_error(
-        JaxRuntimeError("UNAVAILABLE: TPU worker mid-recovery"))
-    assert is_transient_backend_error(
-        JaxRuntimeError("  DEADLINE_EXCEEDED: compile helper timeout"))
-    # Ineligibility errors that merely MENTION the token must fall back.
-    assert not is_transient_backend_error(
-        JaxRuntimeError("INVALID_ARGUMENT: op would be UNAVAILABLE"))
-    # Non-runtime exceptions (Mosaic rejections surface as ValueError &c.)
-    # are never transient.
-    assert not is_transient_backend_error(ValueError("UNAVAILABLE: no"))

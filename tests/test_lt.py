@@ -85,7 +85,7 @@ def test_recovered_bits_are_correct():
     (2, 40, 46),
 ])
 def test_dense_engine_matches_sparse(seed, k, n):
-    """The dense MXU engine (per-sim 0/1 G, peel rounds as batched int8
+    """The dense engine (per-sim 0/1 G, peel rounds as batched int8
     matmuls) is bit-identical to the sparse sorted-edge engine on the
     same sampled graphs — result, recovered bits AND resolved masks."""
     dense = LTSimulator(k, n, c=0.1, delta=0.5, seg_iters=9,

@@ -125,24 +125,25 @@ def test_rotation_irregular_edge_padding(monkeypatch):
     assert res[names[1]][0.35]["bec"] == want[0.35]["bec"]
 
 
-def test_rotation_through_pallas_exact_f32_bsc(monkeypatch):
-    """kernel='pallas' + float32 messages on BSC (the round-3 auto
-    default on TPU): rotation swaps the exact-f32 kernel's slot tables
-    per member. Fresh comparison runs use the SAME forced route — the
-    exact-f32 kernel's slot-major summation order differs from the XLA
-    incidence dot on exact ties (docs/SCALING.md), so cross-route
-    equality is statistical, but rotated-vs-fresh on one route must be
-    bit-identical."""
+@pytest.mark.parametrize("route", ["incidence", "matmul", "gather"])
+def test_rotation_on_each_route_f32_bsc(route, monkeypatch):
+    """Rotation swaps each BP route's member tables (one-hot matrices or
+    slot maps) through the same compiled chunk: float32 BSC MSA, rotated
+    vs fresh runner on the SAME route, must be bit-identical (the routes
+    differ from each other only in summation order on exact ties)."""
+    from ldpc_decoders_tpu.ops import perm as perm_ops
+
+    monkeypatch.setattr(perm_ops, "auto_bp_perm", lambda g, d: route)
     codes = _reg_members(n=48, count=3)
     names = _register(codes, monkeypatch)
     base = RunConfig(channel="bsc", code=names[0], decoder="MSA",
                      params=[0.06], codeword=1, min_wec=20, batch=128,
-                     max_iter=10, log_freq=1e9, kernel="pallas")
+                     max_iter=10, log_freq=1e9)
     res_rot = run_rotating_members(base, names)
     for i, name in enumerate(names):
         fresh = MonteCarloRunner(
             dataclasses.replace(base, code=name, seed=base.seed + i))
-        assert fresh.dec.dec.perm == "pallas"
+        assert fresh.dec.dec.perm == route
         assert fresh.dec.dec.msg_dtype == np.float32
         a, b = res_rot[name][0.06], fresh.run()[0.06]
         assert (a["tot"], a["wec"], a["bec"]) == \
@@ -161,22 +162,3 @@ def test_rotation_rejects_random_codeword(monkeypatch):
             RunConfig("bsc", names[0], "ADMM", params=[0.05], min_wec=2),
             rotating=True)
 
-
-def test_rotation_through_pallas_route(monkeypatch):
-    """kernel='pallas' (interpreter on CPU) + member rotation: the fused
-    kernel's slot tables swap per member through the same compiled chunk
-    and every member's tallies match its fresh-runner run (the BEC
-    ternary kernel is bit-equal to the gather route)."""
-    codes = _reg_members(n=48, count=3)
-    names = _register(codes, monkeypatch)
-    base = RunConfig(channel="bec", code=names[0], decoder="SPA",
-                     params=[0.35], codeword=0, min_wec=20, batch=128,
-                     max_iter=10, log_freq=1e9, kernel="pallas")
-    res_rot = run_rotating_members(base, names)
-    for i, name in enumerate(names):
-        fresh = MonteCarloRunner(
-            dataclasses.replace(base, code=name, seed=base.seed + i,
-                                kernel="xla")).run()
-        a, b = res_rot[name][0.35], fresh[0.35]
-        assert (a["tot"], a["wec"], a["bec"]) == \
-            (b["tot"], b["wec"], b["bec"]), (name, a, b)
