@@ -1,6 +1,6 @@
 """End-to-end smoke check of the Monte-Carlo campaign path on a GPU.
 
-    python chip_smoke.py             # one card: phases 1-4 below
+    python chip_smoke.py             # one card: phases 1-6 below
     python chip_smoke.py --chips 4   # the four-card mesh phase only
 
 One process drives the card. With no option it runs, in order:
@@ -9,12 +9,22 @@ One process drives the card. With no option it runs, in order:
 2. cli      -- ``ldpc_decoders_tpu.main`` sweeps biAWGN MSA on LDPC(1200,3,6)
                at batch 16384; each point's WER must sit within 4 sigma of
                the committed curve in artifacts/data;
-3. families -- every decoder family decodes one fixed draw at full width on
+3. campaign -- ``ldpc_decoders_tpu.campaign REG_ENS`` rotates the ten
+               LDPC(1200,3,6) ensemble members through one compiled chunk
+               per sweep (member rotation: tables as traced arguments) at
+               batch 16384, one chunk per point; every point's WER must
+               sit within the golden bar (5 Agresti-Coull sigma + 0.01)
+               of the member's committed curve;
+4. lt       -- ``ldpc_decoders_tpu.fountain.lt`` at golden scale (k=10000,
+               n=12000) streams two batches of sims; the results must equal
+               the sparse engine's on the CPU for the same graphs, and their
+               mean must sit within 4 sigma of the committed histogram's;
+5. families -- every decoder family decodes one fixed draw at full width on
                the GPU and on the CPU through the same route: bit-identical
                where the arithmetic is integer, within the float-route bar
-               (utils/compare.py) otherwise; small batches are also checked
+               (utils/compare.py) otherwise; batches are also checked
                against the float64 oracles in tests/ref_semantics_oracle.py;
-4. routes   -- times every XLA data-movement route of each family at batch
+6. routes   -- times every XLA data-movement route of each family at batch
                16384 (the numbers PERF.md records).
 
 Every reported number is printed beside the card's ``nvidia-smi`` name and
@@ -36,9 +46,16 @@ CLI_ARGS = ["biawgn", "1200_3_6_ldpc", "MSA", "--params", "2.0", "2.5",
             "--codeword", "1", "--min-wec", "100", "--batch", "16384"]
 CLI_GOLDEN = "artifacts/data/biawgn-1200_3_6_ldpc-MSA-1-100-10.json"
 CLI_SIGMA = 4.0
+# REG_ENS: 10 members x 5 sweeps, 62 points per member, one chunk each.
+# Every point is held to the golden bar of utils/compare.py (the one
+# tests/test_harness.py holds regenerated member curves to).
+CAMPAIGN_ARGS = ["REG_ENS", "--batch", "16384", "--max-words", "16384"]
+CAMPAIGN_FILES = 50
+LT_CLI_ARGS = ["10000", "12000", "0.03", "0.5", "8", "--batch", "4"]
+LT_GOLDEN = "artifacts/data/luby-10000-12000-0.03-0.5.json"
 FAMILY_BATCH = 4096     # LDPC(1200,3,6) families, GPU vs CPU
 MARGULIS_BATCH = 1024   # margulis ADMM at cap 200 (the CPU side is slow)
-ORACLE_BATCH = 128      # float64 numpy oracles
+ORACLE_BATCH = 128      # float64 numpy oracles, float32 messages
 ROUTE_BATCH = 16384
 ROUTE_REPS = 3
 LT_K, LT_N, LT_SIMS = 10000, 12000, 8     # golden scale
@@ -54,7 +71,7 @@ def select_phases(chips: int) -> tuple:
     """Phases a run with ``--chips`` executes: the one-card path, or the
     four-card mesh phase alone."""
     if chips == 1:
-        return ("device", "cli", "families", "routes")
+        return ("device", "cli", "campaign", "lt", "families", "routes")
     if chips == 4:
         return ("device", "mesh")
     raise ValueError(f"--chips must be 1 or 4, not {chips}")
@@ -130,8 +147,142 @@ def phase_cli() -> None:
     say("cli", f"sweep wall time {dt:.1f} s (compilation included)")
 
 
+def golden_gaps(out: dict, golden: dict) -> list:
+    """[(param key, wer, tot, golden wer, golden tot, signed sigma gap,
+    |difference| / golden allowance)] for every point of a Saver JSON
+    ``out``, matched to ``golden`` by parameter value (the two may format
+    the same float differently). A point passes when the last field is
+    below 1."""
+    from ldpc_decoders_tpu.utils.compare import (
+        golden_allowance,
+        wer_sigma_gap,
+    )
+
+    by_value = {round(float(k), 9): k for k in golden["tot"]}
+    rows = []
+    for key in out["tot"]:
+        g_key = by_value.get(round(float(key), 9))
+        check(g_key is not None, f"golden curve has no point at {key}")
+        wer, tot = out["wer"][key], out["tot"][key]
+        g_wer, g_tot = golden["wer"][g_key], golden["tot"][g_key]
+        sign = 1.0 if wer >= g_wer else -1.0
+        rows.append((key, wer, tot, g_wer, g_tot,
+                     sign * wer_sigma_gap(wer, tot, g_wer, g_tot),
+                     abs(wer - g_wer) / golden_allowance(wer, tot, g_wer,
+                                                         g_tot)))
+    return rows
+
+
 # ----------------------------------------------------------------------
-# 3. every family, GPU vs CPU
+# 3. the campaign CLI, member rotation
+# ----------------------------------------------------------------------
+
+def phase_campaign() -> None:
+    import glob
+    import os
+
+    from ldpc_decoders_tpu import campaign
+    from ldpc_decoders_tpu.utils.file import load_json
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        campaign.main(CAMPAIGN_ARGS + ["--data_dir", tmp])
+        dt = time.perf_counter() - t0
+        outs = {os.path.basename(f): load_json(f)
+                for f in sorted(glob.glob(os.path.join(tmp, "*.json")))}
+    check(len(outs) == CAMPAIGN_FILES, f"campaign wrote {len(outs)} result "
+          f"files, expected {CAMPAIGN_FILES}")
+    n_points = n_words = 0
+    worst = (0.0, "")
+    sweeps = {}     # sweep (file name without the member) -> signed gaps
+    for name, out in outs.items():
+        golden = load_json(os.path.join("artifacts", "data", name))
+        check(golden is not None, f"no committed curve for {name}")
+        rows = golden_gaps(out, golden)
+        key, wer, tot, g_wer, g_tot, z, frac = max(rows, key=lambda r: r[-1])
+        n_points += len(rows)
+        n_words += sum(r[2] for r in rows)
+        say("campaign", f"{name}: {len(rows)} points, nearest the bar at "
+            f"{key}: WER {wer} over {tot} words vs golden {g_wer} over "
+            f"{g_tot} ({z:+.2f} sigma, {frac:.2f} of the allowance)")
+        worst = max(worst, (frac, f"{name} at {key}"))
+        sweep = name.split("-")[0] + "-" + "-".join(name.split("-")[2:])
+        sweeps.setdefault(sweep, []).extend(
+            r[5] for r in rows if 0 < r[3] < 1)
+    for sweep, zs in sorted(sweeps.items()):
+        say("campaign", f"{sweep} over 10 members: mean signed gap "
+            f"{sum(zs) / len(zs):+.2f} sigma over {len(zs)} points with "
+            f"0 < golden WER < 1")
+    line = (f"REG_ENS rotated: {len(outs)} member sweeps, {n_points} "
+            f"points, {n_words} words in {dt:.1f} s (compilation "
+            f"included); nearest the golden bar {worst[0]:.2f} of the "
+            f"allowance ({worst[1]}) -> {'ok' if worst[0] < 1 else 'FAIL'}")
+    say("campaign", line)
+    check(worst[0] < 1, line)
+
+
+# ----------------------------------------------------------------------
+# 4. the LT CLI at golden scale
+# ----------------------------------------------------------------------
+
+def lt_mean_gap(arr, golden_arr) -> float:
+    """|mean(arr) - mean(golden_arr)| in units of the two means' combined
+    standard error."""
+    import numpy as np
+
+    a, g = np.asarray(arr, float), np.asarray(golden_arr, float)
+    se = np.sqrt(a.var(ddof=1) / a.size + g.var(ddof=1) / g.size)
+    return float(abs(a.mean() - g.mean()) / se)
+
+
+def phase_lt_cli() -> None:
+    import os
+
+    import jax
+    import numpy as np
+
+    from ldpc_decoders_tpu.fountain import lt
+    from ldpc_decoders_tpu.utils.file import load_json
+
+    k, n, c, delta, count = LT_CLI_ARGS[:5]
+    batch = int(LT_CLI_ARGS[-1])
+    name = f"luby-{k}-{n}-{c}-{delta}.json"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        lt.main(LT_CLI_ARGS + ["--data_dir", tmp])
+        dt = time.perf_counter() - t0
+        out = load_json(os.path.join(tmp, name))
+    check(out is not None, "the LT CLI wrote no Saver JSON")
+    arr = np.asarray(out["arr"])
+    check(arr.size == int(count), f"LT CLI saved {arr.size} sims, asked "
+          f"for {count}")
+
+    # The CLI draws its graphs from default_rng([seed=0, #existing=0]),
+    # one batch after another: replay that stream on the CPU.
+    with jax.default_device(jax.devices("cpu")[0]):
+        sim = lt.LTSimulator(int(k), int(n), float(c), float(delta),
+                             engine="sparse")
+        rng = np.random.default_rng([0, 0])
+        ref = np.concatenate([sim.run(rng, batch)[0]
+                              for _ in range(arr.size // batch)])
+    same = bool((arr == ref).all())
+    line = (f"LT CLI k={k} n={n} c={c}: {arr.size} sims in {dt:.1f} s "
+            f"(compilation included) vs sparse engine on CPU, same graphs "
+            f"[int]: {'bit-identical' if same else 'DIFFERENT'}")
+    say("lt", line)
+    check(same, line)
+
+    golden = load_json(LT_GOLDEN)["arr"]
+    gap = lt_mean_gap(arr, golden)
+    line = (f"LT CLI mean symbols needed {arr.mean():.1f} vs golden "
+            f"{np.mean(golden):.1f} over {len(golden)} sims: {gap:.2f} "
+            f"sigma (bar {CLI_SIGMA}) -> {'ok' if gap <= CLI_SIGMA else 'FAIL'}")
+    say("lt", line)
+    check(gap <= CLI_SIGMA, line)
+
+
+# ----------------------------------------------------------------------
+# 5. every family, GPU vs CPU
 # ----------------------------------------------------------------------
 
 def _fresh_code(name, dev):
@@ -161,7 +312,7 @@ def _decode_on(dev, code_name, build, args):
         t0 = time.perf_counter()
         out = jax.block_until_ready(jax.jit(dec.decode)(*put))
         dt = time.perf_counter() - t0
-    perm = getattr(dec, "perm", None)
+    perm = getattr(dec, "perm", "gather")   # BEC SPA has one route
     if isinstance(out, tuple):
         return np.asarray(out[0]), np.asarray(out[1]), perm, dt
     return np.asarray(out), None, perm, dt
@@ -264,7 +415,7 @@ def _compare(phase, name, prec, bar, a, b, n):
 
 
 def phase_families() -> dict:
-    """Returns the LT engines' GPU times for phase 4."""
+    """Returns the LT engines' GPU times for the route phase."""
     import jax
     import numpy as np
 
@@ -291,7 +442,8 @@ def phase_families() -> dict:
         _compare("families", f"{name} GPU vs CPU", prec, bar,
                  (xg, ig), (xc, ic), batch)
 
-        # Small batch against the float64 numpy oracles.
+        # Against the float64 numpy oracles: a small batch for float32
+        # messages, the whole draw for bfloat16.
         if channel == "bec" and "ADMM" not in name:
             pm = get_code(code_name).parity_mtx
             x_or = np.stack([decode_bec_ref(pm, y[b], 10)
@@ -300,14 +452,15 @@ def phase_families() -> dict:
                      (xg[:ORACLE_BATCH], None), (x_or, None), ORACLE_BATCH)
         elif "SPA-ref" in name or name.endswith("MSA"):
             pm = get_code(code_name).parity_mtx
-            l64 = llr[:ORACLE_BATCH].astype(np.float64)
+            n_or = batch if prec == "bf16" else ORACLE_BATCH
+            l64 = llr[:n_or].astype(np.float64)
             if "SPA" in name:
                 x_or, i_or = decode_spa_ref(pm, l64, 10), None
             else:
                 x_or, i_or = decode_msa_ref(pm, l64, 10,
                                             check_init=(channel != "biawgn"))
             if prec == "bf16":
-                _oracle_wer_check(name, xg[:ORACLE_BATCH], x_or)
+                _oracle_wer_check(name, xg, x_or)
             else:
                 if i_or is not None:
                     n_it = int((ig[:ORACLE_BATCH] != i_or).sum())
@@ -339,10 +492,14 @@ def phase_families() -> dict:
 
 
 def _oracle_wer_check(name, x_gpu, x_or) -> None:
-    """bfloat16 messages against the float64 oracle: a precision change,
-    not a route change, so the bar is the golden-curve one — word error
-    rates within 4 sigma (decision mismatches printed alongside)."""
+    """bfloat16 messages against the float64 oracle, over the whole draw.
+    Two bars: words whose decisions differ stay under the float-route
+    decision bar (1% of words; bfloat16 rounding flips only words near
+    the decision boundary, 3 and 13 of 4096 on the CPU for SPA-ref and
+    MSA at 3 dB), and the word error rates sit within 4 sigma (the
+    golden-curve bar)."""
     from ldpc_decoders_tpu.utils.compare import (
+        DEC_WORD_FRAC,
         mismatch_counts,
         wer_sigma_gap,
     )
@@ -352,10 +509,11 @@ def _oracle_wer_check(name, x_gpu, x_or) -> None:
     w_g = float((x_gpu != 0).any(1).mean())
     w_o = float((x_or != 0).any(1).mean())
     gap = wer_sigma_gap(w_g, n, w_o, n)
-    ok = gap <= CLI_SIGMA
+    ok = gap <= CLI_SIGMA and dec <= DEC_WORD_FRAC * n
     line = (f"{name} GPU vs float64 oracle [bf16]: {dec}/{n} words differ "
-            f"in decisions; WER {w_g:.4f} vs {w_o:.4f} = {gap:.2f} sigma "
-            f"(bar {CLI_SIGMA}) -> {'ok' if ok else 'FAIL'}")
+            f"in decisions (bar {DEC_WORD_FRAC:.0%}); WER {w_g:.4f} vs "
+            f"{w_o:.4f} = {gap:.2f} sigma (bar {CLI_SIGMA}) -> "
+            f"{'ok' if ok else 'FAIL'}")
     say("families", line)
     check(ok, line)
 
@@ -463,7 +621,8 @@ def _cap_sweep_check(gpu, cpu) -> None:
 def _lt_check(gpu, cpu) -> dict:
     """LT at golden scale: dense and sparse engines on the GPU, and the
     sparse engine on the CPU, must agree bit for bit on the same graphs.
-    Returns the second GPU run's seconds per engine, for phase 4."""
+    Returns the second GPU run's seconds per engine, for the route
+    phase."""
     import jax
     import numpy as np
 
@@ -499,7 +658,7 @@ def _lt_check(gpu, cpu) -> dict:
 
 
 # ----------------------------------------------------------------------
-# 4. route timings
+# 6. route timings
 # ----------------------------------------------------------------------
 
 def _time_decode(dec, inp) -> tuple:
@@ -555,7 +714,7 @@ def route_cases():
         ("margulis biAWGN SPA-ref bf16 2.5 dB", "margulis", "biawgn", 2.5,
          ("incidence", "gather"), bp("SPA", jnp.bfloat16, False)),
         ("BEC ternary SPA eps=.35", reg, "bec", 0.35, ("gather",),
-         lambda c, perm: BECSPADecoder(c.graph, max_iter=10, perm=perm)),
+         lambda c, perm: BECSPADecoder(c.graph, max_iter=10)),
         ("biAWGN ADMM cap 50 2.5 dB", reg, "biawgn", 2.5,
          ("gather", "matmul"),
          lambda c, perm: ADMMDecoder(c.graph, max_iter=50, perm=perm)),
@@ -586,9 +745,10 @@ def phase_routes(lt_times: dict) -> None:
                 f"first call {first:.1f} s)")
             best = min(best or (t, perm), (t, perm))
             del dec
-        auto = build(code, "auto").perm
-        say("routes", f"{family}: fastest route {best[1]}, "
-            f"perm='auto' picks {auto}")
+        if len(routes) > 1:
+            auto = build(code, "auto").perm
+            say("routes", f"{family}: fastest route {best[1]}, "
+                f"perm='auto' picks {auto}")
     for engine, t in lt_times.items():
         say("routes", f"LT k={LT_K} n={LT_N} {engine} engine: {LT_SIMS} sims "
             f"in {t:.2f} s = {t / LT_SIMS:.3f} s/sim (second call)")
@@ -600,8 +760,8 @@ def phase_routes(lt_times: dict) -> None:
 
 def phase_mesh(chips: int) -> None:
     """Batch mesh == single-device replay exactly, code-sharded margulis
-    within the float bar of the single-card decode, LT dense fan-out ==
-    single card exactly (__graft_entry__.dryrun_multichip), at a batch
+    within the float bar of the single-card decode, LT fan-out (sparse
+    and dense engines) == single card exactly (__graft_entry__.dryrun_multichip), at a batch
     that fills the cards and LT at golden scale."""
     from __graft_entry__ import dryrun_multichip
 
@@ -629,6 +789,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         if phase == "cli":
             phase_cli()
+        elif phase == "campaign":
+            phase_campaign()
+        elif phase == "lt":
+            phase_lt_cli()
         elif phase == "families":
             lt_times = phase_families()
         elif phase == "routes":

@@ -229,6 +229,8 @@ def main(argv=None):
     p.add_argument("--data_dir", default=None)
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--min-wec", dest="min_wec", type=int, default=None)
+    p.add_argument("--max-words", dest="max_words", type=int, default=None,
+                   help="stop each sweep point after this many words")
     p.add_argument("--no-ensemble", dest="no_ensemble", action="store_true",
                    help="run ensemble cases per member (reference-style)")
     p.add_argument("--joint-ensemble", dest="joint_ensemble",
@@ -250,6 +252,8 @@ def main(argv=None):
         overrides["batch"] = args.batch
     if args.min_wec:
         overrides["min_wec"] = args.min_wec
+    if args.max_words:
+        overrides["max_words"] = args.max_words
     run_campaign(args.case, data_dir=args.data_dir, overrides=overrides,
                  use_ensemble=not args.no_ensemble,
                  joint_ensemble=args.joint_ensemble)

@@ -50,14 +50,10 @@ class BECSPADecoder:
     id_keys = ["max_iter"]
 
     def __init__(self, graph: TannerGraph, max_iter: int = 10,
-                 iter_cap: int = 1000, perm: str = "auto", **_):
+                 iter_cap: int = 1000, **_):
         self.graph = graph
         self.max_iter = int(max_iter)
         self.iter_cap = self.max_iter if self.max_iter > 0 else int(iter_cap)
-        # One route: index gathers (integer ternary dynamics).
-        if perm not in ("auto", "gather"):
-            raise ValueError(f"unknown perm mode {perm!r}")
-        self.perm = "gather"
         self.tables = self.member_tables(graph)
 
     def member_tables(self, graph: TannerGraph,

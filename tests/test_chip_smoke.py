@@ -65,7 +65,7 @@ def test_parse_nvidia_smi_rejects_malformed(text):
 
 
 @pytest.mark.parametrize("chips,want", [
-    (1, ("device", "cli", "families", "routes")),
+    (1, ("device", "cli", "campaign", "lt", "families", "routes")),
     (4, ("device", "mesh")),
 ])
 def test_select_phases(chips, want):
@@ -104,9 +104,14 @@ def test_mismatch_counts_counts_words():
 def test_wer_sigma_gap():
     assert compare.wer_sigma_gap(0.5, 100, 0.5, 100) == 0.0
     assert compare.wer_sigma_gap(0.0, 10, 0.0, 10) == 0.0
-    assert compare.wer_sigma_gap(0.0, 10, 1.0, 10) == float("inf")
+    assert compare.wer_sigma_gap(0.0, 10, 1.0, 10) == pytest.approx(
+        np.sqrt(20))
     gap = compare.wer_sigma_gap(0.2, 10000, 0.19453125, 10240)
     assert 0.9 < gap < 1.0
+    # No errors in one chunk against a curve that needed 254k words for
+    # 109 (7 expected errors here): unremarkable, not ~10 sigma.
+    gap = compare.wer_sigma_gap(0.0, 16384, 109 / 253952, 253952)
+    assert 2.0 < gap < 3.0
 
 
 def test_float_bar_line_reports_counts():
@@ -139,3 +144,43 @@ def test_chip_smoke_alone_fails(tmp_path):
     r = _run(["chip_smoke.py"], str(tmp_path))
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_golden_gaps_matches_points_by_value():
+    """Saver keys are str(float): a stepped sweep writes
+    '0.09000000000000001' where the committed curve has '0.09'."""
+    out = {"tot": {"0.09000000000000001": 1000, "0.1": 1000},
+           "wer": {"0.09000000000000001": 0.1, "0.1": 0.5}}
+    golden = {"tot": {"0.1": 1000, "0.09": 1000},
+              "wer": {"0.1": 0.5, "0.09": 0.1}}
+    rows = chip_smoke.golden_gaps(out, golden)
+    assert [(r[0], r[-2], r[-1]) for r in rows] == [
+        ("0.09000000000000001", 0.0, 0.0), ("0.1", 0.0, 0.0)]
+    out["wer"]["0.1"] = 0.45        # allowance 5 * 0.0222 + 0.01 = 0.121
+    z, frac = chip_smoke.golden_gaps(out, golden)[1][-2:]
+    assert z < -2 and 0.4 < frac < 0.42
+    out["wer"]["0.1"] = 0.35
+    assert chip_smoke.golden_gaps(out, golden)[1][-1] > 1
+    del golden["tot"]["0.09"]
+    with pytest.raises(chip_smoke.SmokeFailure, match="no point"):
+        chip_smoke.golden_gaps(out, golden)
+
+
+def test_lt_mean_gap():
+    rng = np.random.default_rng(0)
+    golden = rng.normal(10400, 100, 2750)
+    assert chip_smoke.lt_mean_gap(golden[:8], golden) < 4
+    assert chip_smoke.lt_mean_gap(golden[:8] + 300, golden) > 4
+
+
+def test_campaign_cli_passes_max_words(monkeypatch):
+    """chip_smoke bounds each REG_ENS point through the campaign CLI."""
+    from ldpc_decoders_tpu import campaign
+
+    seen = {}
+    monkeypatch.setattr(campaign, "run_campaign",
+                        lambda cases, **kw: seen.update(cases=cases, **kw))
+    campaign.main(chip_smoke.CAMPAIGN_ARGS + ["--data_dir", "unused"])
+    assert seen["cases"] == ["REG_ENS"]
+    assert seen["overrides"] == {"batch": 16384, "max_words": 16384}
+    assert seen["use_ensemble"] and not seen["joint_ensemble"]

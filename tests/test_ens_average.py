@@ -9,6 +9,7 @@ import os
 
 import pytest
 
+from ldpc_decoders_tpu.utils.compare import ac_var
 from ldpc_decoders_tpu.viz.ens_average import (comp_average, dump_average,
                                                member_files)
 
@@ -57,15 +58,6 @@ _REF_SFX = {
 }
 
 
-def _ac_var(w, t):
-    """Agresti-Coull adjusted binomial variance of an observed rate
-    (stays honest at w ~= 1 where the raw w*(1-w)/t degenerates to 0 —
-    the reference stops at ~100-300 errors, so its high-WER points have
-    tiny tot)."""
-    p = (w * t + 2.0) / (t + 4.0)
-    return p * (1.0 - p) / (t + 4.0)
-
-
 def _ref_member_var(channel, prefix, decoder, param):
     """Variance of the reference's 10-member mean at ``param`` from its
     committed member files' own (wer, tot) tallies."""
@@ -79,7 +71,7 @@ def _ref_member_var(channel, prefix, decoder, param):
             continue
         d = json.load(open(path))
         if param in d.get("wer", {}):
-            var += _ac_var(d["wer"][param], d["tot"][param])
+            var += ac_var(d["wer"][param], d["tot"][param])
             n += 1
     return var / max(n, 1) ** 2
 
@@ -136,7 +128,7 @@ def test_ens_average_golden_agreement(tmp_path, channel, prefix, decoder):
         n = 0
         for d in data.values():
             if param in d.get("wer", {}):
-                var += _ac_var(d["wer"][param], d["tot"][param])
+                var += ac_var(d["wer"][param], d["tot"][param])
                 n += 1
         var_ours = var / max(n, 1) ** 2
         se = math.sqrt(var_ours + _ref_member_var(channel, prefix,

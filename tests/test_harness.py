@@ -13,6 +13,7 @@ import pytest
 from jax.sharding import Mesh
 
 from ldpc_decoders_tpu.harness import MonteCarloRunner, RunConfig, Saver
+from ldpc_decoders_tpu.utils.compare import ac_var
 
 REF_OUTPUT = "/root/reference/data/output"
 
@@ -267,12 +268,6 @@ _MEMBER_SETS = [
 ]
 
 
-def _ac_var(w, t):
-    """Agresti-Coull adjusted binomial variance of an observed rate."""
-    p = (w * t + 2.0) / (t + 4.0)
-    return p * (1.0 - p) / (t + 4.0)
-
-
 @pytest.mark.parametrize("prefix,channel,dec,ours_sfx,ref_sfx", _MEMBER_SETS)
 def test_cross_channel_member_golden_agreement(prefix, channel, dec,
                                                ours_sfx, ref_sfx):
@@ -300,7 +295,7 @@ def test_cross_channel_member_golden_agreement(prefix, channel, dec,
             # estimate degenerates to 0 (w*(1-w) with w == 1) and any
             # difference looks like infinite sigma. Adding 2 pseudo
             # successes/failures keeps the estimate honest there.
-            se = math.sqrt(_ac_var(w_o, t_o) + _ac_var(w_r, t_r))
+            se = math.sqrt(ac_var(w_o, t_o) + ac_var(w_r, t_r))
             assert abs(w_o - w_r) < 5 * se + 0.01, \
                 (i, param, w_o, w_r, se)
             checked += 1
@@ -331,7 +326,7 @@ def test_margulis_admm_golden_agreement():
             w_r, t_r = ref["wer"][param], ref["tot"][param]
             if w_r < 5e-4 and w_o < 5e-4:
                 continue  # both beyond the budgeted tail resolution
-            se = math.sqrt(_ac_var(w_o, t_o) + _ac_var(w_r, t_r))
+            se = math.sqrt(ac_var(w_o, t_o) + ac_var(w_r, t_r))
             assert abs(w_o - w_r) < 5 * se + 0.01, (ch, param, w_o, w_r, se)
             checked += 1
     if not checked:

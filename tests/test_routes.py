@@ -171,9 +171,8 @@ def test_bec_stopping_sets_match_oracle(code):
 
 @pytest.mark.parametrize("make", [
     lambda g: BPDecoder(g, "MSA", perm="pallas"),
-    lambda g: BECSPADecoder(g, perm="incidence"),
     lambda g: ADMMDecoder(g, perm="incidence"),
-], ids=["bp", "bec", "admm"])
+], ids=["bp", "admm"])
 def test_unknown_route_rejected(code, make):
     with pytest.raises(ValueError, match="perm"):
         make(code.graph)
